@@ -1,0 +1,14 @@
+"""tbus_torch: the PyTorch/CUDA port of tbus's device plane.
+
+The framework-neutral C++ core (cpp/, libtbus.so) is shared and reached
+through the port's own ctypes bindings (tbus_torch._native,
+tbus_torch.rpc). The device plane lives in tbus_torch.parallel; its
+kernels, written by hand for Hopper, in tbus_torch.kernels and
+tbus_torch/csrc. The port imports nothing of the JAX package.
+"""
+
+from tbus_torch.rpc import (Channel, ParallelChannel,  # noqa: F401
+                            RpcError, Server, advertise_device_method,
+                            builtin_handler, enable_torch_fanout, init,
+                            register_device_echo, register_device_method,
+                            torch_lowered_calls)

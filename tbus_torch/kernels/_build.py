@@ -1,0 +1,164 @@
+"""Builds the port's native pieces at first use into tbus_torch/_build/.
+
+- the row-transform kernel: ``nvcc`` -> ``librow_transform.so`` (plain C
+  interface, loaded with ctypes; seconds to build);
+- the fan-out bridge: ``g++`` -> ``libtbus_torch_fanout.so``, linked to the
+  C++ core's ``libtbus.so`` (no CUDA);
+- the C++ core itself, through :func:`tbus_torch._native.build`, when it is
+  missing.
+
+Each output's file name carries a hash of its sources and flags, so a
+changed source builds anew and a stale library is never loaded. Builds
+are safe when several processes (pytest-xdist workers) race: a file lock
+serialises them, and the kernel and bridge libraries appear by an atomic
+rename.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Callable, Dict, List, Tuple
+
+from tbus_torch import _native
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_REPO = os.path.dirname(_PKG)
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each build this process ran (name -> seconds); a
+# library found already built costs 0.
+build_seconds: Dict[str, float] = {}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# The core's own flags (cpp/CMakeLists.txt, RelWithDebInfo): the bridge
+# shares IOBuf and friends with libtbus.so, so their layouts must match.
+GXX_FLAGS = ["-std=c++17", "-O2", "-g", "-DNDEBUG", "-fPIC", "-shared",
+             "-Wall", "-Wextra", "-Wno-unused-parameter"]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(paths: List[str], flags: List[str]) -> str:
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(name: str, out_name: str, cmd_for: Callable[[str], List[str]],
+           key: Tuple[List[str], List[str]]) -> str:
+    """Runs cmd_for(tmp_path) under the build lock unless the hashed
+    output exists; returns the output path."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    stem, ext = os.path.splitext(out_name)
+    out = os.path.join(BUILD_DIR, f"{stem}-{_digest(*key)}{ext}")
+    if os.path.exists(out):
+        return out
+    with open(os.path.join(BUILD_DIR, f"{stem}.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out
+        tmp = f"{out}.tmp{os.getpid()}"
+        t0 = time.monotonic()
+        proc = subprocess.run(cmd_for(tmp), capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {name} failed:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+        build_seconds[name] = time.monotonic() - t0
+    return out
+
+
+def _load(name: str, path: str,
+          signatures: List[Tuple[str, list, object]]) -> ctypes.CDLL:
+    """Loads `path` once, sets each (function, argtypes, restype), and
+    only then publishes it to the fast path."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(path)
+            for fn, args, res in signatures:
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
+            _loaded[name] = lib
+        return lib
+
+
+def core() -> str:
+    """Path of the C++ core's libtbus.so, built if missing or stale."""
+    try:
+        return _native.build()
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"building libtbus.so failed: {e.cmd[:2]}\n"
+                           f"{e.stdout}\n{e.stderr}") from e
+
+
+def row_transform_lib() -> ctypes.CDLL:
+    """The row-transform kernel library, built with nvcc at first use."""
+    lib = _loaded.get("row_transform")  # the per-launch fast path
+    if lib is not None:
+        return lib
+    src = os.path.join(_CSRC, "row_transform.cu")
+    path = _build("row_transform", "librow_transform.so",
+                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                  ([src], NVCC_FLAGS))
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    return _load("row_transform", path, [
+        ("tbus_row_transform", [vp, vp, ll, ll, i, i, i, vp], i)])
+
+
+def fanout_bridge_lib() -> ctypes.CDLL:
+    """The C++ CollectiveFanout bridge, built with g++ against the core.
+
+    Loaded after libtbus.so (through _native.lib()), so the dynamic
+    loader binds the bridge's NEEDED libtbus.so to that same instance:
+    one collective-fan-out registry, one device registry."""
+    lib = _loaded.get("torch_fanout")  # the per-call fast path
+    if lib is not None:
+        return lib
+    core_lib = os.path.abspath(core())
+    _native.lib()
+    src = os.path.join(_CSRC, "torch_fanout.cc")
+    hdrs = [os.path.join(_REPO, "cpp", p) for p in (
+        "rpc/fanout_hooks.h", "tpu/device_registry.h", "tpu/native_fanout.h",
+        "base/iobuf.h", "fiber/sync.h")]
+    core_dir = os.path.dirname(core_lib)
+    flags = GXX_FLAGS + ["-I", os.path.join(_REPO, "cpp")]
+    link = [core_lib, f"-Wl,-rpath,{core_dir}", "-lpthread"]
+    path = _build("torch_fanout", "libtbus_torch_fanout.so",
+                  lambda tmp: ["g++", *flags, "-o", tmp, src, *link],
+                  ([src, *hdrs], flags + [core_lib]))
+    vp, ll, i, cp = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_char_p)
+    return _load("torch_fanout", path, [
+        ("tbus_torch_fanout_enable", [vp], i),
+        ("tbus_torch_fanout_lowered_calls", [], ctypes.c_long),
+        ("tbus_torch_batch_size", [vp], i),
+        ("tbus_torch_batch_service", [vp], cp),
+        ("tbus_torch_batch_method", [vp], cp),
+        ("tbus_torch_batch_n_peers", [vp], ll),
+        ("tbus_torch_batch_timeout_ms", [vp], ll),
+        ("tbus_torch_batch_all_local", [vp], i),
+        ("tbus_torch_batch_payload", [vp, i, ctypes.POINTER(vp)], ll),
+        ("tbus_torch_batch_set_response", [vp, i, ll, cp, ll], i),
+        ("tbus_torch_batch_done", [vp, i], i)])
