@@ -1,39 +1,64 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch port's main path on one NVIDIA card, phase by phase.
+"""Drives the PyTorch port's main paths on one NVIDIA card, phase by phase.
 
-The main path is the lowered ParallelChannel fan-out: a call to 8 peers
-that all advertise the same device method is answered by the card, with
-the row-transform CUDA kernel (tbus_torch/csrc/row_transform.cu) in place
-of the reference's tbus/parallel/runtime.py:_row_transform. Payloads of
+Path 1, the lowered ParallelChannel fan-out: a call to 8 peers that all
+advertise the same device method is answered by the card, with the
+row-transform CUDA kernel (tbus_torch/csrc/row_transform.cu) in place of
+the reference's tbus/parallel/runtime.py:_row_transform. Payloads of
 4 KiB and 1 MiB, the three builtins, and fused batches as the fan-out
 bridge's executor forms them (up to kMaxBatch = 16 calls).
 
-Phases: (i) device; (ii) build the kernel with nvcc; (iii) the kernel
-against its plain version at the main path's shapes, timed beside its
-bound; (iv) the runtime's device kind against its host kind; (v) the
-main path through the runtime entry points the bridge calls, with every
-launch counter reset before and read after, checked against the bytes
-the p2p servers' handlers return, with per-call latency; (vi) a profile
-of lowered calls. Any failure exits nonzero; the last line is the
-device JSON only on success.
+Path 2, the graft entry (tbus_torch.entry, the twin of
+__graft_entry__.py): the fan-out training step
+(tbus_torch.parallel.collective.make_fanout_step) with its bf16 GEMM (K1)
+and dW (K2) kernels (tbus_torch/csrc/gemm_bf16.cu), and ring attention
+with its online-softmax fold kernel (K3, tbus_torch/csrc/ring_fold.cu).
+The card is one H100 and NCCL takes one rank per card, so the step's
+dp/tp collectives run as a one-rank NCCL group (their multi-rank
+behaviour is held on the CPU by tests/test_torch_collectives.py).
+
+Phases: (i) device; (ii) build every kernel, one nvcc per source, all at
+once; (iii) row_transform against its plain version at path 1's shapes,
+timed beside its bound; (iv) the runtime's device kind against its host
+kind; (v) path 1 through the runtime entry points the bridge calls, with
+its counts reset before and read after, checked against the bytes the
+p2p servers' handlers return, with per-call latency; (vi) a profile of
+lowered calls; (vii) K1 and K2 against their plain versions at the
+entry's shape and at hidden 4096 x rows 4096, timed beside their bounds
+and cuBLAS (torch.mm bf16 -> f32, torch.matmul f32); (viii) K3 against
+its plain version over 4 carried folds at 8192 x 8192 x 128 (32K context
+on a 4-position ring), in f32 and bf16, timed beside its bound and
+scaled_dot_product_attention, and at head dims 256 and 200 (more than one
+of the kernel's head-dim chunks); (ix) path
+2 through entry(device="cuda") at the entry's shapes and at hidden 4096,
+and make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
+before and read after, held against the same step on the CPU's plain
+path and against plain full attention, with the step's wall time and
+device-busy share; (x) dryrun_multichip(1) in its own process. Any
+failure exits nonzero; the last line is the device JSON only on success.
 
 The RPC leg (tpu:// servers, the C++ bridge) is not driven here: it
 needs the C++ core libtbus.so, which links protobuf, and GPU hosts
 without protobuf cannot build it. The CPU tests hold that leg
-(tests/test_torch_fanout_rpc.py).
+(tests/test_torch_fanout_rpc.py, tests/test_torch_entry.py).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_TC_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
+F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 SEED = 1234
 N_PEERS = 8
 SIZES = {"4KiB": 4096, "1MiB": 1 << 20}
@@ -94,9 +119,12 @@ def phase_build():
     from tbus_torch.kernels import _build
 
     t0 = time.monotonic()
-    _build.row_transform_lib()
+    _build.build_kernels()
     for name, secs in sorted(_build.build_seconds.items()):
         say(f"built {name} with nvcc: {secs:.1f} s")
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "Used" in line or "spill" in line:
+                say(f"  {name}: {line.strip()}")
     say(f"build phase wall: {time.monotonic() - t0:.1f} s")
 
 
@@ -344,6 +372,377 @@ def phase_profile(torch, dev):
         + f" [{dev['smi']}]")
 
 
+# ---- path 2: the graft entry, its GEMM and fold kernels ----
+
+GEMM_SHAPES = [(4, 16, 16), (4096, 4096, 4096)]  # (M, K, N)
+FOLD = (8192, 8192, 128, 4)  # lq, lk, d, folds: one position of a 4-ring
+# Head dims over K3's 128-wide chunk: (lq, lk, d), two carried folds each.
+WIDE_FOLDS = [(2048, 2048, 256), (1000, 777, 200)]
+HIDDEN = 4096  # one dense layer of a 7B-class model
+
+
+def _bf16_ulp(torch, a):
+    """One bf16 ulp at |a| (8 significant bits)."""
+    _, e = torch.frexp(a.abs().double())
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float64),
+                       torch.clamp(e - 8, min=-133))
+
+
+def _dw_check(torch, x, dy, got, want):
+    """K2 against its plain version: within one bf16 ulp, plus the gap two
+    f32 sums of M terms in different orders can open, sqrt(M) * 2^-24 *
+    sum|t| each (the probabilistic bound); at M = 4 that term is ~1e-6 of
+    an ulp. Returns (ok, max err, elements beyond one ulp, max err in
+    ulps)."""
+    from tbus_torch.kernels import ieee_fp32
+
+    diff = (got.double() - want.double()).abs()
+    ulp = _bf16_ulp(torch, torch.maximum(got.abs(), want.abs()))
+    with ieee_fp32():
+        sumabs = x.bfloat16().float().abs().T @ dy.abs()
+    order = 2 * math.sqrt(x.shape[0]) * 2.0**-24 * sumabs.double()
+    ok = bool((diff <= ulp + order).all())
+    return (ok, float(diff.max()), int((diff > ulp).sum()),
+            float((diff / ulp).max()))
+
+
+def phase_gemm(torch, dev):
+    phase("kernels K1, K2: the fan-out step's GEMMs against plain versions")
+    from tbus_torch.kernels import gemm, ieee_fp32
+
+    rng = np.random.default_rng(SEED + 10)
+    out = {}
+    for m, k, n in GEMM_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                             * np.float32(0.02))
+        dy = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
+        x, w, dy = x.cuda(), w.cuda(), dy.cuda()
+        y = gemm.matmul_bf16_f32(x, w)
+        yp = gemm.matmul_bf16_f32_reference(x, w)
+        g = gemm.dw_f32_bf16(x, dy)
+        gp = gemm.dw_reference(x, dy)
+        torch.cuda.synchronize()
+        k1_err = float((y - yp).abs().max())
+        k1_ok = k1_err <= 1e-4 * float(yp.abs().max())
+        k2_ok, k2_err, k2_beyond, k2_ulps = _dw_check(torch, x, dy, g, gp)
+        with ieee_fp32():  # the exact sum, rounded once
+            exact = (x.bfloat16().double().T @ dy.double()).bfloat16()
+        k2_exact = float((g.bfloat16() == exact).double().mean())
+        p2_exact = float((gp.bfloat16() == exact).double().mean())
+        if not (k1_ok and k2_ok):
+            raise AssertionError(
+                f"GEMM kernels at (M,K,N)={(m, k, n)}: K1 err {k1_err} "
+                f"(ok {k1_ok}); K2 err {k2_err}, {k2_beyond} beyond 1 ulp, "
+                f"max {k2_ulps:.2f} ulp (ok {k2_ok})")
+        big = m * n * k > 1e9
+        iters = 10 if big else 200
+        flops = 2.0 * m * n * k
+        rec = {}
+        xb, wb = x.bfloat16(), w.bfloat16()
+        for name, kern, plain, lib, rate, nbytes in (
+                # library_ms for K1: cuBLAS on the bf16 operands with f32
+                # accumulation and f32 out, K1's function on inputs rounded
+                # beforehand (the rounding is not timed).
+                ("matmul_bf16_f32", lambda: gemm.matmul_bf16_f32(x, w),
+                 lambda: gemm.matmul_bf16_f32_reference(x, w),
+                 lambda: torch.mm(xb, wb, out_dtype=torch.float32),
+                 BF16_TC_FLOPS, 4 * (m * k + k * n + m * n)),
+                ("dw_f32_bf16", lambda: gemm.dw_f32_bf16(x, dy),
+                 lambda: gemm.dw_reference(x, dy),
+                 lambda: x.T @ dy, F32_FLOPS, 4 * (m * k + m * n + k * n))):
+            with ieee_fp32():  # the f32 products below run with TF32 off
+                lib_ms = _cuda_ms(torch, lib, iters)
+                plain_ms = _cuda_ms(torch, plain, iters)
+            ms = _cuda_ms(torch, kern, iters)
+            bound_ms = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+            rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms,
+                         "bound_by": ("operations" if flops / rate
+                                      >= nbytes / HBM_BYTES_PER_S
+                                      else "bytes"),
+                         "tflops": flops / ms / 1e9}
+        rec["matmul_bf16_f32"]["max_abs_err"] = k1_err
+        rec["dw_f32_bf16"]["max_abs_err"] = k2_err
+        # A second yardstick for K1: the full-f32 product of the unrounded
+        # operands, TF32 off (a slower function than K1's).
+        with ieee_fp32():
+            rec["matmul_bf16_f32"]["library_f32_ms"] = _cuda_ms(
+                torch, lambda: x @ w, iters)
+        out[(m, k, n)] = rec
+        k1, k2 = rec["matmul_bf16_f32"], rec["dw_f32_bf16"]
+        say(f"K1 matmul_bf16_f32 (M,K,N)={(m, k, n)}: max|k-p| {k1_err:.3g}"
+            f" <= 1e-4*max|p|; {k1['ms'] * 1e3:.1f} us "
+            f"({k1['tflops']:.1f} TFLOP/s) vs bound "
+            f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}, bf16 tensor "
+            f"cores) = {k1['bound_ms'] / k1['ms'] * 100:.1f}%; plain "
+            f"{k1['plain_ms'] * 1e3:.1f} us; torch.mm bf16 -> f32 "
+            f"{k1['library_ms'] * 1e3:.1f} us; torch.matmul f32 "
+            f"{k1['library_f32_ms'] * 1e3:.1f} us [{dev['smi']}]")
+        say(f"K2 dw_f32_bf16 (M,K,N)={(m, k, n)}: max|k-p| {k2_err:.3g}, "
+            f"{k2_beyond} of {k * n} beyond 1 bf16 ulp (max "
+            f"{k2_ulps:.2f} ulp; f32 summation order); equal to the exact "
+            f"sum rounded once: kernel {k2_exact * 100:.2f}%, plain "
+            f"{p2_exact * 100:.2f}%; {k2['ms'] * 1e3:.1f} us "
+            f"({k2['tflops']:.1f} TFLOP/s) vs bound "
+            f"{k2['bound_ms'] * 1e3:.2f} us (f32 CUDA cores) = "
+            f"{k2['bound_ms'] / k2['ms'] * 100:.1f}% (bf16 tensor-core "
+            f"figure {flops / BF16_TC_FLOPS * 1e6:.2f} us); plain "
+            f"{k2['plain_ms'] * 1e3:.1f} us; torch.matmul f32 "
+            f"{k2['library_ms'] * 1e3:.1f} us [{dev['smi']}]")
+    return out
+
+
+def _fold_inputs(torch, rng, dtype):
+    lq, lk, d, folds = FOLD
+    q = torch.from_numpy(rng.standard_normal((lq, d), dtype=np.float32))
+    ks = torch.from_numpy(rng.standard_normal((folds, lk, d),
+                                              dtype=np.float32))
+    vs = torch.from_numpy(rng.standard_normal((folds, lk, d),
+                                              dtype=np.float32))
+    return q.cuda().to(dtype), ks.cuda().to(dtype), vs.cuda().to(dtype)
+
+
+def _carry(torch, lq, d):
+    return (torch.full((lq,), -math.inf, device="cuda"),
+            torch.zeros((lq,), device="cuda"),
+            torch.zeros((lq, d), device="cuda"))
+
+
+def phase_fold(torch, dev):
+    phase("kernel K3: ring attention's fold against its plain version")
+    import torch.nn.functional as F
+
+    from tbus_torch.kernels import ieee_fp32, ring_fold as rf
+
+    lq, lk, d, folds = FOLD
+    rng = np.random.default_rng(SEED + 11)
+    flops = 4.0 * lq * lk * d  # per fold
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, ks, vs = _fold_inputs(torch, rng, dtype)
+        m, l, o = _carry(torch, lq, d)
+        pm, pl, po = _carry(torch, lq, d)
+        for i in range(folds):
+            rf.fold_(q, ks[i], vs[i], m, l, o)
+            pm, pl, po = rf.fold_reference(q, ks[i], vs[i], pm, pl, po)
+        got, want = o / l[:, None], po / pl[:, None]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        # Timing: back-to-back folds into one carry.
+        carry = _carry(torch, lq, d)
+        ms = _cuda_ms(torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 10)
+        plain_ms = _cuda_ms(torch, lambda: rf.fold_reference(
+            q, ks[0], vs[0], *_carry(torch, lq, d)), 5)
+        qb, kf, vf = (t[None, None] for t in (q, ks.reshape(-1, d),
+                                              vs.reshape(-1, d)))
+        with ieee_fp32():
+            sdpa_32k = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qb, kf, vf), 5)
+            sdpa_one = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qb, ks[0][None, None], vs[0][None, None]), 5)
+        nbytes = (q.numel() + 2 * ks[0].numel()) * q.element_size() \
+            + 2 * 4 * (2 * lq + lq * d)
+        bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        name = str(dtype).replace("torch.", "")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_one,
+                     "library_32k_ms": sdpa_32k, "bound_ms": bound_ms,
+                     "max_abs_err": err, "tflops": flops / ms / 1e9}
+        say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)} x{folds} carried "
+            f"folds: o/l within 2e-5 (max abs err {err:.3g}); one fold "
+            f"{ms * 1e3:.0f} us ({flops / ms / 1e9:.1f} TFLOP/s) vs bound "
+            f"{bound_ms * 1e3:.0f} us (operations, f32 CUDA cores) = "
+            f"{bound_ms / ms * 100:.1f}% (bf16 tensor-core figure "
+            f"{flops / BF16_TC_FLOPS * 1e6:.1f} us); plain "
+            f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention over "
+            f"{lk} keys {sdpa_one * 1e3:.0f} us, over {folds * lk} keys "
+            f"{sdpa_32k * 1e3:.0f} us (vs {folds} folds "
+            f"{folds * ms * 1e3:.0f} us) [{dev['smi']}]")
+    for wlq, wlk, wd in WIDE_FOLDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.standard_normal(
+                (wlq, wd), dtype=np.float32)).cuda().to(dtype)
+            m, l, o = _carry(torch, wlq, wd)
+            pm, pl, po = _carry(torch, wlq, wd)
+            for _ in range(2):
+                k, v = (torch.from_numpy(rng.standard_normal(
+                    (wlk, wd), dtype=np.float32)).cuda().to(dtype)
+                    for _ in range(2))
+                rf.fold_(q, k, v, m, l, o)
+                pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
+            got, want = o / l[:, None], po / pl[:, None]
+            torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+            say(f"K3 ring_fold {str(dtype)[6:]} (lq,lk,d)={(wlq, wlk, wd)} "
+                f"x2 carried folds, {-(-wd // rf.HEAD_CHUNK)} head-dim "
+                f"chunks: o/l within 2e-5 (max abs err "
+                f"{float((got - want).abs().max()):.3g})")
+    return out
+
+
+def _plain_attention(torch, q, k, v):
+    from tbus_torch.kernels import ieee_fp32
+
+    with ieee_fp32():
+        s = (q.float() @ k.float().T) / math.sqrt(q.shape[1])
+        return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _run_steps(step, w, x, n):
+    losses = []
+    for _ in range(n):
+        loss, w = step(w, x)
+        losses.append(float(loss))
+    return losses, w
+
+
+def _wall_p50_us(torch, fn, n):
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return _pctl(lat, 50)
+
+
+def _check_big_step(torch, w, x, loss, w1, losses):
+    """The hidden-4096 step against the same step through the plain
+    versions on the card (one rank: the collectives are identities): the
+    loss to rtol 1e-5, w1 within lr * (one bf16 ulp of g, plus the f32
+    summation-order gap as K2 is held, plus what K1's y moves g by) plus
+    one f32 ulp of w. The
+    reference's lr of 1e-3 is above this width's stable step 2 / lambda_max
+    of the loss's Hessian 2 x^T x, so the loss rises from step to step,
+    as the reference's would; the script prints both."""
+    from tbus_torch.kernels import gemm, ieee_fp32
+
+    y = gemm.matmul_bf16_f32_reference(x, w)
+    want_loss = float((y * y).sum())
+    g = gemm.dw_reference(x, 2 * y)
+    want_w1 = w - 1e-3 * g
+    ulp = _bf16_ulp(torch, g)
+    dy_gap = 2 * (gemm.matmul_bf16_f32(x, w) - y).abs()
+    with ieee_fp32():
+        xa = x.bfloat16().float().abs().T
+        sumabs, moved = xa @ (2 * y).abs(), xa @ dy_gap
+    order = 2 * math.sqrt(x.shape[0]) * 2.0**-24 * sumabs.double()
+    tol = (1e-3 * (ulp + order + moved.double())
+           + 2.0**-23 * w.abs().double())
+    diff = (w1.double() - want_w1.double()).abs()
+    loss_err = abs(loss - want_loss) / want_loss
+    say(f"hidden {HIDDEN} x rows {HIDDEN} step vs its plain versions on the "
+        f"card: loss {loss} vs {want_loss} (rel err {loss_err:.3g}), w1 max "
+        f"abs err {float(diff.max()):.3g} (max {float((diff / tol).max()):.2f}"
+        f" of its tolerance)")
+    if not (loss_err <= 1e-5 and bool((diff <= tol).all())
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError("hidden-4096 step differs from its plain path")
+    v = torch.ones(x.shape[1], device=x.device)
+    with ieee_fp32():
+        for _ in range(30):  # power iteration for lambda_max(2 x^T x)
+            v = x.T @ (x @ v)
+            v = v / v.norm()
+        lam = float(2 * (x @ v).square().sum())
+    say(f"hidden {HIDDEN} losses over 2 steps {losses}: lr 1e-3 vs stable "
+        f"step 2 / lambda_max = {2 / lam:.3g} (lambda_max {lam:.4g}), so "
+        f"the loss {'falls' if losses[1] < losses[0] else 'rises'}")
+
+
+def phase_entry(torch, dev, tmp):
+    phase("main path 2: entry(device='cuda') step and ring attention")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tbus_torch import entry
+    from tbus_torch.kernels import gemm, ring_fold as rf
+    from tbus_torch.parallel import collective, distributed
+
+    # The same step on the CPU's plain path (a one-rank gloo group).
+    distributed.init(0, 1, os.path.join(tmp, "store_cpu"), "gloo")
+    try:
+        step, (w, x) = entry.entry("cpu")
+        cpu_losses, cpu_w1 = _run_steps(step, w, x, 1)
+        cpu_losses += _run_steps(step, cpu_w1, x, 1)[0]
+    finally:
+        distributed.shutdown()
+
+    distributed.init(0, 1, os.path.join(tmp, "store_cuda"), "nccl")
+    try:
+        # The main path's run: every count starts at 0 here.
+        gemm.matmul_launches = gemm.dw_launches = rf.launches = 0
+        collective.ring_rotations = 0
+        step, (w, x) = entry.entry("cuda")
+        losses, w1 = _run_steps(step, w, x, 1)
+        losses += _run_steps(step, w1, x, 1)[0]
+        mesh = collective.default_mesh(1, "cuda")
+        big_step, (bw, bx) = entry._make(mesh, hidden=HIDDEN, rows=HIDDEN)
+        big_loss, big_w1 = big_step(bw, bx)
+        big_losses = [float(big_loss), float(big_step(big_w1, bx)[0])]
+        ring = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
+        attn = collective.make_ring_attention(ring, "sp")
+        rng = np.random.default_rng(SEED + 12)
+        qkv = [torch.from_numpy(rng.standard_normal(
+            (FOLD[0], FOLD[2]), dtype=np.float32)).cuda() for _ in range(3)]
+        att = attn(*qkv)
+        torch.cuda.synchronize()
+        counts = {"matmul_bf16_f32": gemm.matmul_launches,
+                  "dw_f32_bf16": gemm.dw_launches,
+                  "ring_fold": rf.launches,
+                  "ring_rotations": collective.ring_rotations}
+        say(f"main-path 2 counts: {json.dumps(counts)}")
+        if min(counts["matmul_bf16_f32"], counts["dw_f32_bf16"],
+               counts["ring_fold"]) <= 0:
+            raise AssertionError(f"main path 2 missed a kernel: {counts}")
+
+        loss_err = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+        w1_err = float((w1.cpu() - cpu_w1).abs().max())
+        say(f"entry step on the card vs the CPU plain path: losses "
+            f"{losses} vs {cpu_losses} (rel err {loss_err:.3g}), w1 max "
+            f"abs err {w1_err:.3g}")
+        if not (loss_err <= 1e-5 and w1_err <= 1e-7):
+            raise AssertionError("entry step differs from the CPU path")
+        if not losses[1] < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        _check_big_step(torch, bw, bx, float(big_loss), big_w1, big_losses)
+        want = _plain_attention(torch, *qkv)
+        att_err = float((att - want).abs().max())
+        torch.testing.assert_close(att, want, rtol=2e-5, atol=2e-5)
+        say(f"make_ring_attention (world 1, seq {FOLD[0]}, d {FOLD[2]}) "
+            f"== plain full attention (max abs err {att_err:.3g})")
+
+        for name, fn, n, n_prof in (
+                ("entry shape step", lambda: step(w, x), 50, 20),
+                (f"hidden {HIDDEN} step", lambda: big_step(bw, bx), 10, 3),
+                (f"ring attention seq {FOLD[0]}", lambda: attn(*qkv), 10,
+                 3)):
+            wall = _wall_p50_us(torch, fn, n)
+            prof_us, rows = _device_profile(torch, fn, n_prof)
+            per_call, busy = prof_us / n_prof, sum(r[1] for r in rows)
+            for key, us, cnt in rows[:5]:
+                say(f"  {name}: device {us:9.1f} us x{cnt:g}  {key[:60]}")
+            say(f"{name}: wall p50 {wall:.0f} us (host clock, n={n}); "
+                f"profiled wall {per_call:.0f} us, device busy {busy:.0f} "
+                f"us = {busy / per_call * 100:.1f}% [{dev['smi']}]")
+    finally:
+        distributed.shutdown()
+    return counts
+
+
+def phase_dryrun():
+    phase("dryrun_multichip(1, device='cuda') in its own process")
+    from tbus_torch import entry
+
+    t0 = time.monotonic()
+    res = entry.dryrun_multichip(1, device="cuda", rpc=False, timeout_s=300)
+    summary = [{key: r[key] for key in ("rank", "loss", "w1_shape",
+                                         "attn_shape", "ring_rotations")}
+               for r in res]
+    say(f"dryrun_multichip(1): {json.dumps(summary)} in "
+        f"{time.monotonic() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -355,9 +754,14 @@ def main():
     phase_runtime()
     launches = phase_main(dev)
     phase_profile(torch, dev)
+    gemm_recs = phase_gemm(torch, dev)
+    fold_recs = phase_fold(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        counts = phase_entry(torch, dev, tmp)
+    phase_dryrun()
     main_shape = shapes[1]  # the fused 1 MiB batch
-    say(dev["smi"])
-    say(json.dumps({"kernels": [{
+    big = gemm_recs[GEMM_SHAPES[1]]
+    kernels = [{
         "name": "row_transform",
         "route": "cuda",
         "source": "tbus_torch/csrc/row_transform.cu",
@@ -372,7 +776,35 @@ def main():
         "library_ms": None,
         "shape": main_shape["shape"],
         "shapes": shapes,
-    }]}))
+    }]
+    for name, replaces in (
+            ("matmul_bf16_f32", "tbus/parallel/collective.py:188"),
+            ("dw_f32_bf16", "tbus/parallel/collective.py:206")):
+        rec = big[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tbus_torch/csrc/gemm_bf16.cu", "replaces": replaces,
+            "launches": counts[name], "match": True,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": list(GEMM_SHAPES[1]),
+            "shapes": {str(list(k)): v[name] for k, v in gemm_recs.items()},
+        })
+    f32 = fold_recs["float32"]
+    kernels.append({
+        "name": "ring_fold", "route": "cuda",
+        "source": "tbus_torch/csrc/ring_fold.cu",
+        "replaces": "tbus/parallel/collective.py:125",
+        "launches": counts["ring_fold"], "match": True,
+        "max_abs_err": max(r["max_abs_err"] for r in fold_recs.values()),
+        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": "operations",
+        "library_ms": f32["library_ms"], "shape": list(FOLD[:3]),
+        "dtypes": fold_recs,
+    })
+    say(dev["smi"])
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["name"], "count": dev["count"]}}))
     return 0

@@ -1,7 +1,9 @@
 """Builds the port's native pieces at first use into tbus_torch/_build/.
 
-- the row-transform kernel: ``nvcc`` -> ``librow_transform.so`` (plain C
-  interface, loaded with ctypes; seconds to build);
+- the CUDA kernels, one ``nvcc`` per source: ``row_transform.cu``,
+  ``gemm_bf16.cu`` (K1, K2) and ``ring_fold.cu`` (K3), each into its own
+  ``lib<name>.so`` with a plain C interface, loaded with ctypes (seconds
+  to build; :func:`build_kernels` starts them all together);
 - the fan-out bridge: ``g++`` -> ``libtbus_torch_fanout.so``, linked to the
   C++ core's ``libtbus.so`` (no CUDA);
 - the C++ core itself, through :func:`tbus_torch._native.build`, when it is
@@ -38,9 +40,12 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # Wall seconds of each build this process ran (name -> seconds); a
 # library found already built costs 0.
 build_seconds: Dict[str, float] = {}
+# The compiler's report of each build this process ran (name -> stderr):
+# with -Xptxas=-v, every kernel's registers, shared memory and spills.
+build_logs: Dict[str, str] = {}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 # The core's own flags (cpp/CMakeLists.txt, RelWithDebInfo): the bridge
 # shares IOBuf and friends with libtbus.so, so their layouts must match.
 GXX_FLAGS = ["-std=c++17", "-O2", "-g", "-DNDEBUG", "-fPIC", "-shared",
@@ -86,6 +91,7 @@ def _build(name: str, out_name: str, cmd_for: Callable[[str], List[str]],
                 f"building {name} failed:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
         build_seconds[name] = time.monotonic() - t0
+        build_logs[name] = proc.stderr
     return out
 
 
@@ -113,18 +119,63 @@ def core() -> str:
                            f"{e.stdout}\n{e.stderr}") from e
 
 
-def row_transform_lib() -> ctypes.CDLL:
-    """The row-transform kernel library, built with nvcc at first use."""
-    lib = _loaded.get("row_transform")  # the per-launch fast path
+def _cuda_lib(name: str, signatures: List[Tuple[str, list, object]]
+              ) -> ctypes.CDLL:
+    """csrc/<name>.cu built with nvcc into lib<name>.so at first use."""
+    lib = _loaded.get(name)  # the per-launch fast path
     if lib is not None:
         return lib
-    src = os.path.join(_CSRC, "row_transform.cu")
-    path = _build("row_transform", "librow_transform.so",
+    src = os.path.join(_CSRC, f"{name}.cu")
+    path = _build(name, f"lib{name}.so",
                   lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                   ([src], NVCC_FLAGS))
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    return _load("row_transform", path, [
-        ("tbus_row_transform", [vp, vp, ll, ll, i, i, i, vp], i)])
+    return _load(name, path, signatures)
+
+
+_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+
+
+def row_transform_lib() -> ctypes.CDLL:
+    """The row-transform kernel (csrc/row_transform.cu)."""
+    return _cuda_lib("row_transform", [
+        ("tbus_row_transform", [_VP, _VP, _LL, _LL, _I, _I, _I, _VP], _I)])
+
+
+def gemm_lib() -> ctypes.CDLL:
+    """The fan-out step's K1 and K2 (csrc/gemm_bf16.cu)."""
+    return _cuda_lib("gemm_bf16", [
+        ("tbus_matmul_bf16_f32", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+         _I),
+        ("tbus_dw_f32_bf16", [_VP, _VP, _VP, _I, _I, _I, _I, _VP], _I)])
+
+
+def ring_fold_lib() -> ctypes.CDLL:
+    """Ring attention's fold, K3 (csrc/ring_fold.cu)."""
+    return _cuda_lib("ring_fold", [
+        ("tbus_ring_fold",
+         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
+         _I)])
+
+
+def build_kernels() -> None:
+    """Builds every kernel library at once, one nvcc per source."""
+    libs = (row_transform_lib, gemm_lib, ring_fold_lib)
+    errors: List[BaseException] = []
+
+    def run(fn: Callable[[], ctypes.CDLL]) -> None:
+        try:
+            fn()
+        except (RuntimeError, OSError) as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(fn,)) for fn in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def fanout_bridge_lib() -> ctypes.CDLL:

@@ -1,0 +1,135 @@
+"""The fan-out step's matrix products: kernels K1 and K2 (csrc/gemm_bf16.cu)
+and their plain PyTorch versions.
+
+They replace the device compute of tbus/parallel/collective.py:186
+make_fanout_step.shard_body:
+
+- :func:`matmul_bf16_f32` (K1), ``dot(bf16(x), bf16(w),
+  preferred_element_type=f32)`` (:188-189): x [M, K] and w [K, N], f32 or
+  bf16, rounded to bf16, multiplied exactly, summed in f32, f32 [M, N] out;
+- :func:`dw_f32_bf16` (K2), its transpose for w: ``bf16(bf16(x)^T . dy)``
+  as f32 [K, N], with dy kept in f32 (the reference's jaxpr rounds dW, not
+  dy, to bf16).
+
+:class:`BF16Matmul` pairs them as an autograd Function (the gradient is
+taken for w only, as the reference's value_and_grad is). The plain
+versions run their f32 products with TF32 off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
+
+# Kernel launches made by this process (bumped only where a kernel is
+# launched, never by a plain version).
+matmul_launches = 0
+dw_launches = 0
+
+_MAX_DIM = 2**31 - 1
+
+
+def _check(name: str, a: torch.Tensor, b: torch.Tensor, inner: int) -> None:
+    for t in (a, b):
+        if t.dim() != 2 or t.dtype not in DTYPE_CODES:
+            raise ValueError(f"{name}: operands must be 2-D f32 or bf16, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if max(t.shape, default=0) > _MAX_DIM:
+            raise ValueError(f"{name}: dimension over 2^31 - 1")
+    if a.shape[inner] != b.shape[0]:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not chain")
+    if a.device != b.device:
+        raise ValueError(f"{name}: operands on {a.device} and {b.device}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {a.device}")
+
+
+def matmul_bf16_f32_reference(x: torch.Tensor,
+                              w: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1, on any device."""
+    _check("matmul_bf16_f32", x, w, 1)
+    with ieee_fp32():
+        return x.bfloat16().float() @ w.bfloat16().float()
+
+
+def dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2, on any device."""
+    _check("dw_f32_bf16", x, dy, 0)
+    if dy.dtype != torch.float32:
+        raise ValueError(f"dw_f32_bf16: dy must be f32, got {dy.dtype}")
+    with ieee_fp32():
+        return (x.bfloat16().float().T @ dy).bfloat16().float()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def matmul_bf16_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """f32 [M, N] = bf16(x) . bf16(w), summed in f32. Launches K1 for CUDA
+    tensors; the plain version serves only tensors on the CPU."""
+    global matmul_launches
+    _check("matmul_bf16_f32", x, w, 1)
+    if x.device.type == "cpu":
+        return matmul_bf16_f32_reference(x, w)
+    from tbus_torch.kernels import _build
+
+    lib = _build.gemm_lib()
+    x, w = x.contiguous(), w.contiguous()
+    (m, k), n = x.shape, w.shape[1]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tbus_matmul_bf16_f32(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
+            DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"matmul_bf16_f32 kernel launch failed: CUDA "
+                           f"error {err}")
+    matmul_launches += 1
+    return y
+
+
+def dw_f32_bf16(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """f32 [K, N] = bf16_round(bf16(x)^T . dy) for x [M, K] (f32 or bf16)
+    and dy f32 [M, N]. Launches K2 for CUDA tensors; the plain version
+    serves only tensors on the CPU."""
+    global dw_launches
+    _check("dw_f32_bf16", x, dy, 0)
+    if dy.dtype != torch.float32:
+        raise ValueError(f"dw_f32_bf16: dy must be f32, got {dy.dtype}")
+    if x.device.type == "cpu":
+        return dw_reference(x, dy)
+    from tbus_torch.kernels import _build
+
+    lib = _build.gemm_lib()
+    x, dy = x.contiguous(), dy.contiguous()
+    (m, k), n = x.shape, dy.shape[1]
+    dw = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tbus_dw_f32_bf16(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), m, k, n,
+            DTYPE_CODES[x.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"dw_f32_bf16 kernel launch failed: CUDA error "
+                           f"{err}")
+    dw_launches += 1
+    return dw
+
+
+class BF16Matmul(torch.autograd.Function):
+    """y = matmul_bf16_f32(x, w) with dW = dw_f32_bf16(x, dy) as the
+    backward. x takes no gradient (the reference differentiates w only)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad:
+            raise ValueError("BF16Matmul: x takes no gradient")
+        ctx.save_for_backward(x)
+        return matmul_bf16_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return None, dw_f32_bf16(x, dy)

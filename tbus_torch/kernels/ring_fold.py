@@ -1,0 +1,116 @@
+"""Ring attention's online-softmax fold: kernel K3 (csrc/ring_fold.cu) and
+its plain PyTorch version.
+
+It replaces tbus/parallel/collective.py:125 ring_attention.fold: the local
+queries q [lq, d] against one visiting block k, v [lk, d] (f32 or bf16),
+folded into the f32 carry (m [lq], l [lq], o [lq, d]) as :128-137 compute
+it, all in f32 after the input cast:
+
+    s = q k^T / sqrt(d); m' = max(m, rowmax s); a = exp(m - m')
+    l' = l a + rowsum exp(s - m'); o' = o a + exp(s - m') v
+
+The reference is pure and returns the new carry; :func:`fold_` writes it
+into m, l and o in place, which saves the carry's copy per ring step.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
+
+# Kernel launches made by this process (bumped only where the kernel is
+# launched, never by the plain version).
+launches = 0
+
+# The kernel's widest chunk of the head dim; a wider d runs in several
+# chunks, whose m and l go to fresh outputs (csrc/ring_fold.cu).
+HEAD_CHUNK = 128
+
+
+def _check(q, k_blk, v_blk, m, l, o) -> None:
+    if q.dim() != 2 or q.dtype not in DTYPE_CODES:
+        raise ValueError(f"q must be 2-D f32 or bf16, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    lq, d = q.shape
+    for name, t in (("k_blk", k_blk), ("v_blk", v_blk)):
+        if t.dtype != q.dtype or t.dim() != 2 or t.shape[1] != d:
+            raise ValueError(f"{name} must be {q.dtype} [lk, {d}], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if k_blk.shape != v_blk.shape:
+        raise ValueError("k_blk and v_blk differ in shape")
+    for name, t, shape in (("m", m, (lq,)), ("l", l, (lq,)),
+                           ("o", o, (lq, d))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"carry {name} must be f32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    devices = {t.device for t in (q, k_blk, v_blk, m, l, o)}
+    if len(devices) != 1:
+        raise ValueError(f"fold: tensors on several devices {devices}")
+
+
+def _scale(d: int) -> torch.Tensor:
+    """1 / sqrt(d) in f32, computed as the reference computes it."""
+    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
+
+
+def fold_reference(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+                   m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel, on any device: returns the new carry
+    (m', l', o') and leaves its inputs as they are."""
+    _check(q, k_blk, v_blk, m, l, o)
+    with ieee_fp32():
+        s = torch.einsum("qd,kd->qk", q.float(), k_blk.float())
+        s = s * _scale(q.shape[1]).to(s.device)
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[:, None])
+        l_new = l * alpha + p.sum(dim=-1)
+        o_new = o * alpha[:, None] + p @ v_blk.float()
+    return m_new, l_new, o_new
+
+
+def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
+          m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> None:
+    """Folds one visiting k/v block into the carry (m, l, o) IN PLACE.
+    Launches the kernel for CUDA tensors; the plain version serves only
+    tensors on the CPU."""
+    global launches
+    _check(q, k_blk, v_blk, m, l, o)
+    if q.device.type == "cpu":
+        for dst, src in zip((m, l, o),
+                            fold_reference(q, k_blk, v_blk, m, l, o)):
+            dst.copy_(src)
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"fold_: unsupported device {q.device}")
+    lq, d = q.shape
+    lk = k_blk.shape[0]
+    if max(lq, lk, d) >= 2**31:
+        raise ValueError(f"fold_: the kernel takes lq, lk, d < 2^31; got "
+                         f"lq {lq}, lk {lk}, d {d}")
+    if not all(t.is_contiguous() for t in (m, l, o)):
+        raise ValueError("fold_: the carry must be contiguous")
+    from tbus_torch.kernels import _build
+
+    lib = _build.ring_fold_lib()
+    q, k_blk, v_blk = (t.contiguous() for t in (q, k_blk, v_blk))
+    # One chunk writes m and l in place; several read the old m and l
+    # until the last of them ends, so theirs go to fresh tensors.
+    m_out, l_out = ((m, l) if d <= HEAD_CHUNK
+                    else (torch.empty_like(m), torch.empty_like(l)))
+    with torch.cuda.device(q.device):
+        err = lib.tbus_ring_fold(
+            q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
+            l.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), o.data_ptr(),
+            lq, lk, d, float(_scale(d)), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ring_fold kernel launch failed: CUDA error {err}")
+    launches += 1
+    if m_out is not m:
+        m.copy_(m_out)
+        l.copy_(l_out)

@@ -1,0 +1,117 @@
+"""The fan-out step's GEMM kernels (K1, K2) against their plain versions, on
+the card.
+
+The kernels have no CPU mode, so these tests skip without an NVIDIA card.
+This file imports no JAX; run it on the card without tests/conftest.py:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_gemm_cuda.py
+
+Tolerances. K1: max|kernel - plain| <= 1e-4 * max|plain|; both multiply
+the same bf16 values exactly and differ only in the order of the f32 sum.
+K2: within one bf16 ulp elementwise, plus the gap that two f32 sums of
+the same M terms taken in different orders can open: sqrt(M) * 2^-24 *
+sum|t| each (the probabilistic bound). Both round an f32 sum to bf16
+once; a near-tie may round the other way, and where the terms cancel
+(at M = 4096 some results are far smaller than sum|t|) the f32 sums
+themselves differ by more than an ulp of the result. At the entry's
+M = 4 the second term is about 1e-6 of an ulp.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from tbus_torch.kernels import gemm
+
+# (M, K, N): the entry's shape, one dense layer of a 7B-class model, and
+# ragged shapes that are no multiple of any tile.
+SHAPES = [(4, 16, 16), (4096, 4096, 4096), (1, 1, 1), (37, 29, 50),
+          (130, 129, 257), (200, 300, 33), (4, 16, 32)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _operands(card, m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                         * np.float32(0.02))
+    dy = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
+    return x.to(card), w.to(card), dy.to(card)
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at |a| (8 significant bits)."""
+    _, e = torch.frexp(a.abs().double())
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float64),
+                       torch.clamp(e - 8, min=-133))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("x_dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("w_dtype", DTYPES, ids=str)
+def test_matmul_kernel_matches_plain_version(card, shape, x_dtype, w_dtype):
+    m, k, n = shape
+    x, w, _ = _operands(card, m, k, n, seed=m + k + n)
+    x, w = x.to(x_dtype), w.to(w_dtype)
+    before = gemm.matmul_launches
+    got = gemm.matmul_bf16_f32(x, w)
+    torch.cuda.synchronize()
+    assert gemm.matmul_launches == before + 1
+    want = gemm.matmul_bf16_f32_reference(x, w)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("x_dtype", DTYPES, ids=str)
+def test_dw_kernel_within_one_bf16_ulp(card, shape, x_dtype):
+    m, k, n = shape
+    x, _, dy = _operands(card, m, k, n, seed=3 * m + k)
+    x = x.to(x_dtype)
+    before = gemm.dw_launches
+    got = gemm.dw_f32_bf16(x, dy)
+    torch.cuda.synchronize()
+    assert gemm.dw_launches == before + 1
+    want = gemm.dw_reference(x, dy)
+    assert got.dtype == torch.float32 and got.shape == (k, n)
+    assert torch.equal(got, got.bfloat16().float())  # rounded to bf16
+    diff = (got.double() - want.double()).abs()
+    ulp = _bf16_ulp(torch.maximum(got.abs(), want.abs()))
+    sumabs = gemm.dw_reference(x.abs(), dy.abs()).double()
+    order = 2 * math.sqrt(m) * 2.0**-24 * sumabs
+    assert bool((diff <= ulp + order).all()), (diff / ulp).max().item()
+
+
+@pytest.mark.cuda
+def test_dw_keeps_dy_in_f32(card):
+    """K2 must not round dy to bf16. Six rows of x = 1 and dy = 1 + 2^-8
+    (a tie that bf16 rounds to 1): the f32 sum 6 + 6 * 2^-8 rounds to the
+    bf16 6.03125, while a bf16 dy would sum to 6."""
+    x = torch.ones((6, 1), device=card)
+    dy = torch.full((6, 1), 1 + 2**-8, device=card)
+    assert gemm.dw_f32_bf16(x, dy).item() == 6.03125
+    assert gemm.dw_reference(x, dy).item() == 6.03125
+
+
+@pytest.mark.cuda
+def test_autograd_function_runs_both_kernels(card):
+    x, w, dy = _operands(card, 64, 48, 80, seed=9)
+    w = w.requires_grad_(True)
+    m0, d0 = gemm.matmul_launches, gemm.dw_launches
+    y = gemm.BF16Matmul.apply(x, w)
+    (g,) = torch.autograd.grad(y, (w,), dy)
+    torch.cuda.synchronize()
+    assert (gemm.matmul_launches, gemm.dw_launches) == (m0 + 1, d0 + 1)
+    assert torch.equal(g, gemm.dw_f32_bf16(x, dy))

@@ -1,8 +1,12 @@
 """The port stands alone: no file of tbus_torch/, and not chip_smoke.py,
-imports jax or anything of the JAX package (tbus)."""
+imports jax or anything of the JAX package (tbus), neither in its code nor
+in the Python source it hands to child processes (launch_local bodies,
+the dryrun's RPC leg). The card's test files, which run there without
+tests/conftest.py, import neither either."""
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -14,7 +18,14 @@ def _port_files():
     for dirpath, _dirs, names in os.walk(os.path.join(ROOT, "tbus_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
+    tests = os.path.join(ROOT, "tests")
+    files += [os.path.join(tests, n) for n in os.listdir(tests)
+              if n.startswith("test_torch_") and n.endswith("_cuda.py")]
     return sorted(files)
+
+
+# An import line inside a string constant: source run by a child process.
+_SOURCE_IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.MULTILINE)
 
 
 def _forbidden(module):
@@ -24,7 +35,11 @@ def _forbidden(module):
 
 def _imports(path):
     with open(path) as f:
-        tree = ast.parse(f.read(), path)
+        yield from _imports_of_source(f.read(), path)
+
+
+def _imports_of_source(source, path="<string>"):
+    tree = ast.parse(source, path)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -36,12 +51,32 @@ def _imports(path):
               and getattr(node.func, "attr", getattr(node.func, "id", ""))
               in ("import_module", "__import__")):
             yield node.args[0].value
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield from _SOURCE_IMPORT.findall(node.value)
+
+
+_EXPECTED = [
+    "tbus_torch/parallel/runtime.py", "tbus_torch/parallel/collective.py",
+    "tbus_torch/parallel/distributed.py", "tbus_torch/parallel/params.py",
+    "tbus_torch/kernels/gemm.py", "tbus_torch/kernels/ring_fold.py",
+    "tbus_torch/entry.py", "tests/test_torch_row_transform_cuda.py",
+    "tests/test_torch_gemm_cuda.py", "tests/test_torch_ring_fold_cuda.py",
+    "tests/test_torch_entry_cuda.py",
+]
 
 
 def test_port_files_exist():
     files = _port_files()
-    assert os.path.join(ROOT, "tbus_torch", "parallel", "runtime.py") in files
+    for rel in _EXPECTED:
+        assert os.path.join(ROOT, *rel.split("/")) in files, rel
     assert all(os.path.exists(f) for f in files)
+
+
+def test_source_strings_are_checked():
+    """The check reads the sources handed to children: an import of jax
+    in a string constant is caught."""
+    tree = 'BODY = """\nimport numpy\nfrom jax import numpy\n"""\n'
+    assert list(_imports_of_source(tree)) == ["numpy", "jax"]
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,0 +1,71 @@
+"""Ring attention's fold kernel (K3) against its plain version, on the card.
+
+The kernel has no CPU mode, so these tests skip without an NVIDIA card.
+This file imports no JAX; run it on the card without tests/conftest.py:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_ring_fold_cuda.py
+
+Tolerance: 2e-5 absolute and relative on o / l after the folds, as the
+reference's own ring test holds ring attention to full attention
+(tests/test_collectives.py:97). The kernel rescales per tile of 64 keys
+where the plain version takes one max over the whole block, and sums in
+another order; the same inputs reach both in f32, so bf16 inputs are held
+to the same tolerance.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from tbus_torch.kernels import ring_fold as rf
+
+# (lq, lk, d, folds): the entry's ring (local 8, d 16), the JAX test's
+# (local 16, d 32), 32K context over a 4-position ring, ragged shapes
+# that are no multiple of the 64-row tiles, and head dims over the
+# kernel's 128-wide chunk (256, and ragged ones that leave a partial
+# last chunk).
+SHAPES = [(8, 8, 16, 8), (16, 16, 32, 8), (8192, 8192, 128, 4),
+          (1, 1, 8, 2), (100, 77, 48, 3), (65, 130, 128, 2),
+          (200, 63, 100, 2), (8, 8, 256, 4), (1024, 1024, 256, 2),
+          (100, 77, 200, 3), (70, 129, 129, 2), (33, 65, 400, 2)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _carry(lq, d, device):
+    return (torch.full((lq,), -math.inf, device=device),
+            torch.zeros((lq,), device=device),
+            torch.zeros((lq, d), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fold_kernel_matches_plain_version(card, shape, dtype):
+    lq, lk, d, folds = shape
+    rng = np.random.default_rng(lq + lk + d)
+    q = torch.from_numpy(rng.standard_normal((lq, d), dtype=np.float32))
+    q = q.to(card, dtype)
+    blocks = [tuple(torch.from_numpy(rng.standard_normal(
+        (lk, d), dtype=np.float32)).to(card, dtype) for _ in range(2))
+        for _ in range(folds)]
+    m, l, o = _carry(lq, d, card)
+    pm, pl, po = _carry(lq, d, card)
+    before = rf.launches
+    for k, v in blocks:
+        rf.fold_(q, k, v, m, l, o)
+        pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
+    torch.cuda.synchronize()
+    assert rf.launches == before + folds
+    assert bool(torch.isfinite(o).all()) and bool((l > 0).all())
+    torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(o / l[:, None], po / pl[:, None],
+                               rtol=2e-5, atol=2e-5)
