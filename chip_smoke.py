@@ -17,30 +17,46 @@ The card is one H100 and NCCL takes one rank per card, so the step's
 dp/tp collectives run as a one-rank NCCL group (their multi-rank
 behaviour is held on the CPU by tests/test_torch_collectives.py).
 
-Phases: (i) device; (ii) build every kernel, one nvcc per source, all at
-once; (iii) row_transform against its plain version at path 1's shapes,
-timed beside its bound; (iv) the runtime's device kind against its host
-kind; (v) path 1 through the runtime entry points the bridge calls, with
-its counts reset before and read after, checked against the bytes the
-p2p servers' handlers return, with per-call latency; (vi) a profile of
-lowered calls; (vii) K1 and K2 against their plain versions at the
-entry's shape and at hidden 4096 x rows 4096, timed beside their bounds
-and cuBLAS (torch.mm bf16 -> f32, torch.matmul f32); (viii) K3 against
-its plain version over 4 carried folds at 8192 x 8192 x 128 (32K context
-on a 4-position ring), in f32 and bf16, timed beside its bound and
-scaled_dot_product_attention, and at head dims 256 and 200 (more than one
-of the kernel's head-dim chunks); (ix) path
-2 through entry(device="cuda") at the entry's shapes and at hidden 4096,
+Path 3, the C++ device plane (tbus_torch/csrc/cuda_runtime.cc, the port
+of cpp/tpu/pjrt_runtime.cc and serve_engine.cc): device methods and the
+continuous-batching generate method on a loopback server, every payload
+through the runtime's dispatch thread and kernels K4 u8_transform, K5
+dot128 and K6 dotbench (tbus_torch/csrc/device_programs.cu).
+
+Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
+where protobuf is missing, as on the card's machine) with cmake+ninja
+while nvcc builds every kernel (one per source, all at once), then both
+bridges with g++; (iii) row_transform against its plain version at path
+1's shapes, timed beside its bound; (iv) the runtime's device kind
+against its host kind; (v) path 1 through the runtime entry points the
+bridge calls, with its counts reset before and read after, checked
+against the bytes the p2p servers' handlers return, with per-call
+latency; (vi) a profile of lowered calls; (vii) K1 and K2 against their
+plain versions at the entry's shape and at hidden 4096 x rows 4096,
+timed beside their bounds and cuBLAS (torch.mm bf16 -> f32, torch.matmul
+f32); (viii) K3 against its plain version over 4 carried folds at 8192 x
+8192 x 128 (32K context on a 4-position ring), in f32 and bf16, timed
+beside its bound and scaled_dot_product_attention, and at head dims 256
+and 200 (more than one of the kernel's head-dim chunks); (ix) path 2
+through entry(device="cuda") at the entry's shapes and at hidden 4096,
 and make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
 before and read after, held against the same step on the CPU's plain
 path and against plain full attention, with the step's wall time and
-device-busy share; (x) dryrun_multichip(1) in its own process. Any
-failure exits nonzero; the last line is the device JSON only on success.
-
-The RPC leg (tpu:// servers, the C++ bridge) is not driven here: it
-needs the C++ core libtbus.so, which links protobuf, and GPU hosts
-without protobuf cannot build it. The CPU tests hold that leg
-(tests/test_torch_fanout_rpc.py, tests/test_torch_entry.py).
+device-busy share; (x) dryrun_multichip(1) in its own process; (xi) K4,
+K5 and K6 against their plain versions at path 3's shapes (the 256 KiB
+serving step, 4 KiB and 1 MiB payloads, dot128 at k = 2048,
+dotbench4096x32), timed beside their bounds and the library calls;
+(xii) path 3a: device methods (echo, xor255, incr at 4 KiB and 1 MiB,
+dot128 at 1 MiB, dotbench4096x32 on a 4-byte seed), every reply held to
+the plain version on the card, with the runtime's launch counts reset
+before and read after, per-call p50/p99 and the device-busy share of a
+profiled call; (xiii) path 3b: generate (incr, xor255) at max_batch 64,
+token_bytes 4096: 64 concurrent streams of 16 tokens checked byte for
+byte, then bench_serve for 2 s, with serve_stats naming the CUDA engine;
+(xiv) path 1's RPC leg: a ParallelChannel to 8 tpu:// servers, p2p and
+then lowered through the torch fan-out bridge, byte-equal, p50/p99 at
+4 KiB and 1 MiB. Any failure exits nonzero; the last line is the device
+JSON only on success.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -48,9 +64,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -116,16 +134,46 @@ def phase_device(torch):
 
 def phase_build():
     phase("build")
+    from tbus_torch import _native
     from tbus_torch.kernels import _build
 
     t0 = time.monotonic()
-    _build.build_kernels()
+    # The kernels (one nvcc each) build while the C++ core builds.
+    errors = []
+
+    def kernels():
+        try:
+            _build.build_kernels()
+        except Exception as e:  # re-raised below, in this thread
+            errors.append(e)
+
+    worker = threading.Thread(target=kernels)
+    worker.start()
+    t_core = time.monotonic()
+    core = _build.core()
+    core_s = time.monotonic() - t_core
+    flavor = _native.core_flavor()
+    worker.join()
+    if errors:
+        raise errors[0]
+    say(f"built the C++ core ({flavor}): {core_s:.1f} s -> "
+        f"{os.path.relpath(core)}")
+    if flavor != ("protobuf" if _native.has_protobuf() else "protobuf-free"):
+        raise AssertionError(f"core flavour {flavor} on a host where "
+                             f"protobuf is {_native.has_protobuf()}")
+    for name, fn in (("torch_fanout", _build.fanout_bridge_lib),
+                     ("torch_device", _build.device_bridge_lib)):
+        t1 = time.monotonic()
+        fn()
+        say(f"built the {name} bridge with g++: "
+            f"{time.monotonic() - t1:.1f} s")
     for name, secs in sorted(_build.build_seconds.items()):
-        say(f"built {name} with nvcc: {secs:.1f} s")
+        say(f"built {name}: {secs:.1f} s")
         for line in _build.build_logs.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
     say(f"build phase wall: {time.monotonic() - t0:.1f} s")
+    return flavor
 
 
 def _kernel_rows(torch, rng, b, length, payload_n):
@@ -289,9 +337,6 @@ def phase_main(dev):
         say(f"fused batch {len(ps)}x{k}: p50 {_pctl(lat, 50):.0f} us p99 "
             f"{_pctl(lat, 99):.0f} us per batch (n={len(lat)}; "
             f"[{dev['smi']}])")
-    say("p2p over tpu://: not measured by this script (it does not build "
-        "libtbus.so, which needs protobuf); the RPC leg is held on the "
-        "CPU by tests/test_torch_fanout_rpc.py")
     return counts["kernel_launches"]
 
 
@@ -317,13 +362,13 @@ def _device_profile(torch, fn, n):
     return wall_us, sorted(rows, key=lambda r: -r[1])
 
 
-def _kernel_device_ms(torch, fn, n):
-    """Device time of one row_transform_kernel launch, from the profiler
-    (the card's own clock, without host launch overhead)."""
+def _kernel_device_ms(torch, fn, n, kernel="row_transform_kernel"):
+    """Device time of one launch of `kernel`, from the profiler (the
+    card's own clock, without host launch overhead)."""
     _, rows = _device_profile(torch, fn, n)
-    us = [r[1] / r[2] for r in rows if "row_transform_kernel" in r[0]]
+    us = [r[1] / r[2] for r in rows if kernel in r[0]]
     if not us:
-        raise AssertionError("the profiler saw no row_transform_kernel")
+        raise AssertionError(f"the profiler saw no {kernel}")
     return us[0] / 1e3
 
 
@@ -743,13 +788,447 @@ def phase_dryrun():
         f"{time.monotonic() - t0:.1f} s")
 
 
+# ---- path 3: the C++ device plane (tbus_torch/csrc/cuda_runtime.cc) ----
+
+U8_TRANSFORMS = ("echo", "xor255", "incr")
+SERVE_STEP = 64 * 4096  # ServeOptions defaults: max_batch x token_bytes
+DOT128_K = (1 << 20) // 512  # bench.py:282-284's 1 MiB payload
+DOTBENCH = (4096, 32)  # bench.py:306 dotbench4096x32
+DOTBENCH_CHECKS = [(128, 4), (256, 2), (1000, 3)]
+
+
+def _dot128_tol(torch, x):
+    """Two f32 sums of 128 products in different orders differ by at most
+    2 * 128 * 2^-24 * sum|x_i W_ij| (the first-order error bound of each)."""
+    from tbus_torch.kernels import device_programs as dp, ieee_fp32
+
+    with ieee_fp32():
+        mag = x.abs() @ dp.dot128_weight(x.device).abs()
+    return 2 * 128 * 2.0**-24 * mag
+
+
+def _dotbench_check(torch, n, t, seed, got_sum, got_last):
+    """K6 against its plain version. The last matrix element by element:
+    one bf16 ulp (the two f32 sums of the final product may round to
+    neighbours), plus what the inputs' own differences and the f32 order
+    can move the final product: 2^-7 (one ulp, relative) + n * 2^-24 of
+    bf16(1/n) * sum_k |v_prev[i, k]| |W[k, j]|. The checksum: 2^-7 *
+    sum|v| (one bf16 ulp of the result, and the last matrix's ulps) plus
+    the f32 order gap n * 2^-24 * sum|v| (sqrt of the n^2 terms). Returns
+    (ok, checksum err, its tolerance, elements beyond one ulp, max
+    element err in ulps)."""
+    from tbus_torch.kernels import device_programs as dp, ieee_fp32
+
+    want_sum, want_last = dp.dotbench_reference(seed, n, t, device="cuda",
+                                                return_last=True)
+    prev = dp.dotbench_reference(seed, n, t - 1, device="cuda",
+                                 return_last=True)[1]
+    _, w = dp.dotbench_operands(seed, n, "cuda")
+    inv = float(dp.dotbench_inverse(n))
+    with ieee_fp32():
+        mag = (prev.float().abs() @ w.float().abs()) * inv
+    a, b = got_last.double(), want_last.double()
+    diff = (a - b).abs()
+    ulp = _bf16_ulp(torch, torch.maximum(a.abs(), b.abs()))
+    elem_tol = ulp + (2.0**-7 + n * 2.0**-24) * mag.double()
+    sumabs = float(want_last.float().abs().double().sum())
+    sum_tol = (2.0**-7 + n * 2.0**-24) * sumabs
+    sum_err = abs(float(got_sum.reshape(())) - float(want_sum))
+    ok = bool((diff <= elem_tol).all()) and sum_err <= sum_tol
+    return (ok, sum_err, sum_tol, int((diff > ulp).sum()),
+            float((diff / ulp).max()))
+
+
+def phase_device_kernels(torch, dev):
+    phase("kernels K4-K6: the device plane's programs against their plain "
+          "versions")
+    from tbus_torch.kernels import device_programs as dp, ieee_fp32
+
+    rng = np.random.default_rng(SEED + 20)
+    recs = {}
+
+    # K4: byte for byte at the path's shapes, ragged lengths and an
+    # unaligned start (the scalar path).
+    raw = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 64,
+                                        dtype=np.uint8)).cuda()
+    cases = [(0, n) for n in (SERVE_STEP, 4096, 1 << 20, 1, 4097,
+                              (1 << 20) + 1)] + [(3, 4096 + 5)]
+    for off, n in cases:
+        x = raw[off:off + n]
+        for tf in U8_TRANSFORMS:
+            got = dp.u8_transform(x, tf)
+            if not torch.equal(got, dp.u8_transform_reference(x, tf)):
+                raise AssertionError(f"u8_transform {tf} n={n} off={off}")
+    torch.cuda.synchronize()
+    k4 = []
+    for n in (SERVE_STEP, 4096, 1 << 20):
+        x = raw[:n]
+        ms = _kernel_device_ms(torch, lambda: dp.u8_transform(x, "incr"),
+                               200, "u8_transform_kernel")
+        call_ms = _cuda_ms(torch, lambda: dp.u8_transform(x, "incr"), 200)
+        plain_ms = _cuda_ms(torch, lambda: dp.u8_transform_reference(
+            x, "incr"), 200)
+        lib_ms = {"xor": _cuda_ms(torch, lambda: torch.bitwise_xor(x, 255),
+                                  200),
+                  "add": _cuda_ms(torch, lambda: x + 1, 200),
+                  "clone": _cuda_ms(torch, lambda: x.clone(), 200)}
+        bound_ms = 2 * n / HBM_BYTES_PER_S * 1e3
+        k4.append({"n": n, "ms": ms, "call_ms": call_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms["add"],
+                   "library_all_ms": lib_ms, "bound_ms": bound_ms})
+        say(f"K4 u8_transform incr n={n}: {ms * 1e3:.2f} us on the device "
+            f"(bound {bound_ms * 1e3:.3f} us, bytes; "
+            f"{bound_ms / ms * 100:.1f}%); wrapper call {call_ms * 1e3:.2f} "
+            f"us; plain {plain_ms * 1e3:.2f} us; library x+1 "
+            f"{lib_ms['add'] * 1e3:.2f}, bitwise_xor "
+            f"{lib_ms['xor'] * 1e3:.2f}, clone {lib_ms['clone'] * 1e3:.2f} "
+            f"us [{dev['smi']}]")
+    say(f"K4 byte-equal to its plain version for {', '.join(U8_TRANSFORMS)}"
+        f" at n in {[n for _, n in cases]} (one unaligned start)")
+    recs["u8_transform"] = {"max_abs_err": 0, "shapes": k4, **k4[2]}
+
+    # K5: true f32 against the plain product with TF32 off.
+    k5 = []
+    dot_err = 0.0
+    for k in (1, 8, 64, DOT128_K, 4096, 1000):
+        x = torch.from_numpy(rng.standard_normal((k, 128),
+                                                 dtype=np.float32)).cuda()
+        got, want = dp.dot128(x), dp.dot128_reference(x)
+        diff = (got - want).abs()
+        if not bool((diff <= _dot128_tol(torch, x)).all()):
+            raise AssertionError(f"dot128 k={k}: max err {float(diff.max())}")
+        dot_err = max(dot_err, float(diff.max()))
+        if k in (8, DOT128_K):
+            w = dp.dot128_weight("cuda")
+            ms = _kernel_device_ms(torch, lambda: dp.dot128(x), 200,
+                                   "dot128_kernel")
+            plain_ms = _cuda_ms(torch, lambda: dp.dot128_reference(x), 200)
+            with ieee_fp32():
+                lib_ms = _cuda_ms(torch, lambda: torch.matmul(x, w), 200)
+            flops, nbytes = 2.0 * k * 128 * 128, 2 * k * 512
+            bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+            k5.append({"k": k, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": bound_ms,
+                       "bound_by": ("operations" if flops / F32_FLOPS
+                                    >= nbytes / HBM_BYTES_PER_S
+                                    else "bytes")})
+            say(f"K5 dot128 k={k}: {ms * 1e3:.2f} us on the device (bound "
+                f"{bound_ms * 1e3:.3f} us, {k5[-1]['bound_by']}; "
+                f"{bound_ms / ms * 100:.1f}%); plain {plain_ms * 1e3:.2f} "
+                f"us; torch.matmul f32 (TF32 off) {lib_ms * 1e3:.2f} us "
+                f"[{dev['smi']}]")
+    say(f"K5 within 2*128*2^-24*(|x|@|W|) of its plain version at k in "
+        f"(1, 8, 64, {DOT128_K}, 4096, 1000); max abs err {dot_err:.3g}")
+    recs["dot128"] = {"max_abs_err": dot_err, "shapes": k5, **k5[1]}
+
+    # K6: the chained bf16 product.
+    dot_seed = 0.5
+    k6_err = 0.0
+    for n, t in DOTBENCH_CHECKS + [DOTBENCH]:
+        seed_t = torch.tensor([dot_seed], device="cuda")
+        got_sum, got_last = dp.dotbench(seed_t, n, t, return_last=True)
+        ok, err, tol, beyond, ulps = _dotbench_check(
+            torch, n, t, dot_seed, got_sum, got_last)
+        say(f"K6 dotbench{n}x{t}: checksum {float(got_sum):.6g} err "
+            f"{err:.3g} (tol {tol:.3g}); last matrix {beyond} of {n * n} "
+            f"elements beyond one bf16 ulp, max {ulps:.2f} ulp")
+        if not ok:
+            raise AssertionError(f"dotbench{n}x{t} differs from its plain "
+                                 f"version")
+        k6_err = max(k6_err, err)
+    n, t = DOTBENCH
+    seed_t = torch.tensor([dot_seed], device="cuda")
+    ms = _cuda_ms(torch, lambda: dp.dotbench(seed_t, n, t), 5, warmup=1)
+    plain_ms = _cuda_ms(torch, lambda: dp.dotbench_reference(
+        dot_seed, n, t, device="cuda"), 3, warmup=1)
+    a0, w = dp.dotbench_operands(dot_seed, n, "cuda")
+    inv = dp.dotbench_inverse(n).cuda()
+
+    def library_chain():
+        v = a0
+        for _ in range(t):
+            v = torch.mm(v, w) * inv
+        return v.float().sum().bfloat16()
+
+    lib_ms = _cuda_ms(torch, library_chain, 5, warmup=1)
+    lib_one_ms = _cuda_ms(torch, lambda: torch.mm(a0, w), 20)
+    step_ms = _kernel_device_ms(torch, lambda: dp.dotbench(seed_t, n, t), 2,
+                                "dotbench_step_kernel")
+    flops = t * 2.0 * n**3
+    bound_ms = flops / BF16_TC_FLOPS * 1e3
+    say(f"K6 dotbench{n}x{t}: {ms:.3f} ms per call ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s; one product {step_ms * 1e3:.1f} us on the device) vs "
+        f"bound {bound_ms:.3f} ms (operations, bf16 TC) = "
+        f"{bound_ms / ms * 100:.1f}%; plain (f32 products, TF32 off) "
+        f"{plain_ms:.3f} ms; cuBLAS bf16 chain {lib_ms:.3f} ms, one "
+        f"torch.mm {lib_one_ms * 1e3:.1f} us [{dev['smi']}]")
+    recs["dotbench"] = {"max_abs_err": k6_err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "library_one_ms": lib_one_ms,
+                        "step_ms": step_ms, "bound_ms": bound_ms,
+                        "bound_by": "operations", "n": n, "t": t}
+    return recs
+
+
+DEVICE_METHODS = {"Echo": "echo", "Xor": "xor255", "Incr": "incr",
+                  "Dot": "dot128", "Bench": f"dotbench{DOTBENCH[0]}x"
+                  f"{DOTBENCH[1]}"}
+GEN_METHODS = {"Generate": "incr", "GenXor": "xor255"}
+
+
+def _device_server():
+    """One loopback server with path 3's mounts: the device methods and
+    the two generate methods (mounted before start, as the reference)."""
+    import tbus_torch as tt
+
+    s = tt.Server()
+    for method, tf in DEVICE_METHODS.items():
+        s.add_device_method("DevService", method, tf)
+    s.add_echo("DevService", "Plain")  # the same RPC without the device
+    for method, tf in GEN_METHODS.items():
+        s.add_generate_method("GenService", method, tf, max_batch=64,
+                              token_bytes=4096)
+    return s, s.start(0)
+
+
+def _device_reply_ok(torch, method, payload, got):
+    """A device method's reply against the plain versions on the card."""
+    from tbus_torch.kernels import device_programs as dp
+
+    tf = DEVICE_METHODS[method]
+    if tf == "dot128":
+        x = torch.frombuffer(bytearray(payload), dtype=torch.float32)
+        x = x.reshape(-1, 128).cuda()
+        y = torch.frombuffer(bytearray(got), dtype=torch.float32).cuda()
+        diff = (y.reshape(-1, 128) - dp.dot128_reference(x)).abs()
+        return len(got) == len(payload) and bool(
+            (diff <= _dot128_tol(torch, x)).all())
+    if tf.startswith("dotbench"):
+        n, t = dp.parse_dotbench(tf)
+        seed = struct.unpack("<f", payload)[0]
+        want, last = dp.dotbench_reference(seed, n, t, device="cuda",
+                                           return_last=True)
+        tol = (2.0**-7 + n * 2.0**-24) * float(last.float().abs().sum())
+        return len(got) == 4 and abs(
+            struct.unpack("<f", got)[0] - float(want)) <= tol
+    return got == dp.device_method_reference(tf, payload, device="cuda")
+
+
+def phase_device_methods(torch, dev, port):
+    phase("main path 3a: device methods through the CUDA runtime")
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    rng = np.random.default_rng(SEED + 21)
+    ch = tt.Channel(f"127.0.0.1:{port}", timeout_ms=60000)
+    u8 = {k: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+          for k, n in SIZES.items()}
+    x = rng.standard_normal((DOT128_K, 128), dtype=np.float32).tobytes()
+    seed = struct.pack("<f", 0.5)
+    calls = [(m, k, u8[k]) for m in ("Echo", "Xor", "Incr") for k in SIZES]
+    calls += [("Dot", "1MiB", x), ("Bench", "seed", seed)]
+
+    # The main path's run: every count starts at 0 here.
+    rpc.reset_device_launches()
+    before = rpc.device_stats()
+    replies = {(m, k): ch.call("DevService", m, p) for m, k, p in calls}
+    after = rpc.device_stats()
+    launches = after["launches"]
+    say(f"device_stats before: {json.dumps(before)}")
+    say(f"device_stats after:  {json.dumps(after)}")
+    for m, k, p in calls:
+        if not _device_reply_ok(torch, m, p, replies[(m, k)]):
+            raise AssertionError(f"device method {m} at {k} differs from "
+                                 f"its plain version")
+    if after["platform"] != "cuda" or min(launches.values()) <= 0:
+        raise AssertionError(f"path 3a missed a kernel: {launches}")
+    say(f"every reply equals its plain version on the card: "
+        f"{', '.join(f'{m}/{k}' for m, k, _ in calls)}; launches on the "
+        f"path: {json.dumps(launches)}")
+
+    lat = {}
+    plain = [("Plain", k, u8[k]) for k in SIZES]
+    for m, k, p in calls + plain:
+        n = 5 if m == "Bench" else 40
+        samples = _latencies(lambda: ch.call("DevService", m, p), n)
+        lat[f"{m}/{k}"] = {"p50_us": _pctl(samples, 50),
+                           "p99_us": _pctl(samples, 99), "n": n}
+        say(f"{'device method' if m != 'Plain' else 'native echo'} {m} "
+            f"({DEVICE_METHODS.get(m, 'no device')}) {k}: p50 "
+            f"{lat[f'{m}/{k}']['p50_us']:.0f} us p99 "
+            f"{lat[f'{m}/{k}']['p99_us']:.0f} us (host clock, n={n}) "
+            f"[{dev['smi']}]")
+    busy = {}
+    for m, k, p in (("Echo", "1MiB", u8["1MiB"]), ("Echo", "4KiB", u8["4KiB"]),
+                    ("Dot", "1MiB", x), ("Bench", "seed", seed)):
+        n = 2 if m == "Bench" else 20
+        wall_us, rows = _device_profile(
+            torch, lambda: ch.call("DevService", m, p), n)
+        per_call, dev_us = wall_us / n, sum(r[1] for r in rows)
+        busy[f"{m}/{k}"] = {"wall_us": per_call, "device_us": dev_us}
+        for key, us, cnt in rows[:4]:
+            say(f"  {m} {k}: device {us:9.1f} us x{cnt:g}  {key[:60]}")
+        say(f"{m} {k} call: wall {per_call:.0f} us, device busy "
+            f"{dev_us:.1f} us = {dev_us / per_call * 100:.1f}% [{dev['smi']}]")
+    return launches, lat, busy
+
+
+def _token_truth(tf, prompt, ntokens, token_bytes=4096):
+    """The documented token rule: state = prompt repeated to token_bytes,
+    the transform applied once per step; token i is the state after step
+    i + 1."""
+    reps = -(-token_bytes // len(prompt))
+    state = np.frombuffer((prompt * reps)[:token_bytes], dtype=np.uint8)
+    out = []
+    for _ in range(ntokens):
+        state = state ^ 0xFF if tf == "xor255" else state + np.uint8(1)
+        out.append(state.tobytes())
+    return out
+
+
+def phase_serving(torch, dev, port):
+    phase("main path 3b: continuous-batching generate on the CUDA step "
+          "engine")
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    n_streams, ntokens = 64, 16
+    rpc.reset_device_launches()
+    before = {s["name"]: s for s in tt.serve_stats()}
+    errors = []
+
+    def one(i, method):
+        try:
+            ch = tt.Channel(f"127.0.0.1:{port}", timeout_ms=60000)
+            prompt = f"prompt-{method}-{i:03d}".encode()
+            want = _token_truth(GEN_METHODS[method], prompt, ntokens)
+            req = struct.pack("<I", ntokens) + prompt
+            with tt.Stream.create(ch, "GenService", method, req) as st:
+                for k in range(ntokens):
+                    if st.read(timeout_ms=60000) != want[k]:
+                        raise AssertionError(f"{method} stream {i} token {k}")
+                if st.read(timeout_ms=60000) is not None:
+                    raise AssertionError(f"{method} stream {i}: no clean end")
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    for method in GEN_METHODS:
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i, method))
+                   for i in range(n_streams)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        say(f"{method} ({GEN_METHODS[method]}): {n_streams} concurrent "
+            f"streams x {ntokens} tokens of 4096 bytes byte-exact in "
+            f"{time.monotonic() - t0:.2f} s")
+    launches = rpc.device_stats()["launches"]
+    stats = {s["name"]: s for s in tt.serve_stats()}
+    for method in GEN_METHODS:
+        st = stats[f"GenService.{method}"]
+        b = before.get(f"GenService.{method}", {})
+        steps = st["steps"] - b.get("steps", 0)
+        if st.get("engine") != "cuda" or st["engine_failures"] != 0 \
+                or st["engine_steps"] != st["steps"] or steps <= 0:
+            raise AssertionError(f"serve stats: {st}")
+        say(f"serve_stats GenService.{method}: engine {st['engine']}, "
+            f"{steps} steps (all on the engine), plan hits/misses "
+            f"{st['plan_hits']}/{st['plan_misses']}, peak batch "
+            f"{st['peak_batch']}")
+    if launches["u8_transform"] <= 0:
+        raise AssertionError(f"path 3b missed K4: {launches}")
+    say(f"launches on path 3b: {json.dumps(launches)}")
+
+    bench = tt.bench_serve(f"127.0.0.1:{port}", "GenService", "Generate",
+                           concurrency=64, duration_ms=2000, ntokens=ntokens,
+                           token_bytes=4096, timeout_ms=10000)
+    if bench["ok"] <= 0 or bench["other"] or bench["timedout"]:
+        raise AssertionError(f"bench_serve: {bench}")
+    say(f"bench_serve 64 x {ntokens} tokens, 2 s: {bench['token_qps']:.0f} "
+        f"tokens/s, {bench['seq_qps']:.0f} seq/s, TTFT p50 "
+        f"{bench['ttft_p50_us']:.0f} us p99 {bench['ttft_p99_us']:.0f} us, "
+        f"gap p50 {bench['gap_p50_us']:.0f} us p99 {bench['gap_p99_us']:.0f} "
+        f"us, ok {bench['ok']} shed {bench['shed']} [{dev['smi']}]")
+    wall_us, rows = _device_profile(torch, lambda: tt.bench_serve(
+        f"127.0.0.1:{port}", "GenService", "Generate", concurrency=64,
+        duration_ms=300, ntokens=ntokens, token_bytes=4096,
+        timeout_ms=10000), 1)
+    dev_us = sum(r[1] for r in rows)
+    for key, us, cnt in rows[:4]:
+        say(f"  serving 0.3 s: device {us:9.1f} us x{cnt:g}  {key[:60]}")
+    say(f"serving under bench_serve (0.3 s window): device busy "
+        f"{dev_us / wall_us * 100:.1f}% of {wall_us / 1e3:.0f} ms "
+        f"[{dev['smi']}]")
+    return launches, bench
+
+
+def phase_rpc_leg(dev):
+    phase("path 1's RPC leg: ParallelChannel to 8 tpu:// servers, lowered "
+          "and p2p")
+    import tbus_torch as tt
+    from tbus_torch.parallel import runtime
+
+    tt.advertise_device_method("FanoutRpc", "Echo", "echo/v1")
+    tt.advertise_device_method("FanoutRpc", "Xor", "xor255/v1")
+    servers, pchan = [], tt.ParallelChannel()
+    for _ in range(N_PEERS):
+        s = tt.Server()
+        s.add_echo("FanoutRpc", "Echo")
+        s.add_method("FanoutRpc", "Xor", tt.builtin_handler("xor255"))
+        servers.append(s)
+        pchan.add(f"tpu://127.0.0.1:{s.start(0)}")
+    if not pchan.collective_eligible:
+        raise AssertionError("the 8 tpu:// servers are not fan-out eligible")
+    rng = np.random.default_rng(SEED + 22)
+    payloads = {k: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                for k, n in SIZES.items()}
+    out = {}
+    p2p = {k: pchan.call("FanoutRpc", "Echo", p, 30000)
+           for k, p in payloads.items()}
+    xor_p2p = pchan.call("FanoutRpc", "Xor", payloads["4KiB"], 30000)
+    for k, p in payloads.items():
+        if p2p[k] != p * N_PEERS:
+            raise AssertionError(f"p2p echo {k}")
+        lat = _latencies(lambda: pchan.call("FanoutRpc", "Echo", p, 30000),
+                         50 if k == "4KiB" else 20)
+        out[f"p2p/{k}"] = {"p50_us": _pctl(lat, 50), "p99_us": _pctl(lat, 99)}
+    if not tt.enable_torch_fanout():
+        raise AssertionError("enable_torch_fanout failed")
+    tt.register_device_echo("FanoutRpc", "Echo")
+    tt.register_device_method("FanoutRpc", "Xor", "xor255", "xor255/v1")
+    before = tt.torch_lowered_calls()
+    for k, p in payloads.items():
+        if pchan.call("FanoutRpc", "Echo", p, 30000) != p2p[k]:
+            raise AssertionError(f"lowered echo {k} differs from p2p")
+    if pchan.call("FanoutRpc", "Xor", payloads["4KiB"], 30000) != xor_p2p:
+        raise AssertionError("lowered xor255 4KiB differs from p2p")
+    if tt.torch_lowered_calls() < before + 3:
+        raise AssertionError("the calls did not lower")
+    for k, p in payloads.items():
+        lat = _latencies(lambda: pchan.call("FanoutRpc", "Echo", p, 30000),
+                         50 if k == "4KiB" else 20)
+        out[f"lowered/{k}"] = {"p50_us": _pctl(lat, 50),
+                               "p99_us": _pctl(lat, 99)}
+    for key, v in out.items():
+        say(f"ParallelChannel x{N_PEERS} tpu:// {key}: p50 "
+            f"{v['p50_us']:.0f} us p99 {v['p99_us']:.0f} us [{dev['smi']}]")
+    say(f"lowered == p2p bytes (echo 4KiB, 1MiB; xor255 4KiB); "
+        f"{tt.torch_lowered_calls() - before} lowered calls, "
+        f"{runtime.lowered_calls} through the runtime")
+    for s in servers:
+        s.stop()
+    return out
+
+
 def main():
     import torch
 
     dev = phase_device(torch)
     if dev is None:
         return 1
-    phase_build()
+    flavor = phase_build()
     shapes, max_err = phase_kernel(torch, dev)
     phase_runtime()
     launches = phase_main(dev)
@@ -759,6 +1238,18 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = phase_entry(torch, dev, tmp)
     phase_dryrun()
+    dp_recs = phase_device_kernels(torch, dev)
+    import tbus_torch as tt
+
+    tt.device_init("cuda")
+    server, port = _device_server()
+    try:
+        dm_launches, _, _ = phase_device_methods(torch, dev, port)
+        serve_launches, _ = phase_serving(torch, dev, port)
+    finally:
+        server.stop()
+    phase_rpc_leg(dev)
+    say(f"core flavour: {flavor}")
     main_shape = shapes[1]  # the fused 1 MiB batch
     big = gemm_recs[GEMM_SHAPES[1]]
     kernels = [{
@@ -803,6 +1294,25 @@ def main():
         "library_ms": f32["library_ms"], "shape": list(FOLD[:3]),
         "dtypes": fold_recs,
     })
+    # Path 3's kernels: launches are the runtime's own counts over path 3a
+    # (device methods) plus 3b (serving), each run from 0.
+    for name, replaces, shape in (
+            ("u8_transform", "cpp/tpu/serve_engine.cc:28", [1 << 20]),
+            ("dot128", "cpp/tpu/pjrt_runtime.cc:207", [DOT128_K, 128]),
+            ("dotbench", "cpp/tpu/pjrt_runtime.cc:245", list(DOTBENCH))):
+        rec = dp_recs[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tbus_torch/csrc/device_programs.cu",
+            "replaces": replaces,
+            "launches": dm_launches[name] + serve_launches[name],
+            "match": True, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec.get("bound_by", "bytes"),
+            "library_ms": rec["library_ms"], "shape": shape,
+            "detail": rec,
+        })
     say(dev["smi"])
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,15 +2,18 @@
 
 The framework-neutral C++ core (cpp/, libtbus.so) is shared and reached
 through the port's own ctypes bindings (tbus_torch._native,
-tbus_torch.rpc). The device plane lives in tbus_torch.parallel; its
-kernels, written by hand for Hopper, in tbus_torch.kernels and
-tbus_torch/csrc. The graft entry points (entry, dryrun_multichip)
+tbus_torch.rpc). The device plane lives in tbus_torch.parallel and, for
+the C++ plane (device methods, the serving step engine), in the runtime
+of tbus_torch/csrc/cuda_runtime.cc; its kernels, written by hand for
+Hopper, in tbus_torch.kernels and tbus_torch/csrc. The graft entry points (entry, dryrun_multichip)
 are in tbus_torch.entry. The port imports nothing of the JAX package.
 """
 
 from tbus_torch.rpc import (Channel, ParallelChannel,  # noqa: F401
-                            RpcError, Server, advertise_device_method,
-                            builtin_handler, enable_torch_fanout, init,
+                            RpcError, Server, Stream,
+                            advertise_device_method, bench_serve,
+                            builtin_handler, device_available, device_init,
+                            device_stats, enable_torch_fanout, init,
                             register_device_echo, register_device_method,
-                            torch_lowered_calls)
+                            serve_stats, torch_lowered_calls)
 from tbus_torch import entry  # noqa: F401,E402

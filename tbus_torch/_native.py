@@ -4,6 +4,16 @@ The port's own copy of the JAX package's loader: it loads the same
 framework-neutral C++ core, builds it on demand with cmake+ninja when it
 is missing or stale, and annotates only the C API the port calls. The C
 ABI is defined in cpp/capi/tbus_c.h.
+
+Two flavours of the core, from the same sources (core_flavor() says which
+one this process loaded):
+- "protobuf": the standard cpp/build/libtbus.so (cpp/CMakeLists.txt),
+  built where the compiler finds google/protobuf/service.h;
+- "protobuf-free": tbus_torch/_build/core/libtbus.so
+  (tbus_torch/csrc/core/CMakeLists.txt), built where it does not (the
+  H100 machine): protobuf's abstract RPC classes come from
+  tbus_torch/csrc/pb_shim and typed protobuf calls fail
+  (tbus_torch/csrc/pb_absent.cc).
 """
 
 from __future__ import annotations
@@ -11,13 +21,19 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import os
+import shutil
 import subprocess
 import threading
+from typing import List
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CPP = os.path.join(_REPO, "cpp")
 _BUILD = os.path.join(_CPP, "build")
 _LIB = os.path.join(_BUILD, "libtbus.so")
+_PORT_CSRC = os.path.join(_REPO, "tbus_torch", "csrc")
+_PB_SHIM = os.path.join(_PORT_CSRC, "pb_shim")
+_PB_FREE_BUILD = os.path.join(_REPO, "tbus_torch", "_build", "core")
+_PB_FREE_LIB = os.path.join(_PB_FREE_BUILD, "libtbus.so")
 # Cross-process build lock: pytest-xdist workers and chip_smoke's
 # processes may all find the library missing at once.
 _LOCK_FILE = os.path.join(_REPO, "tbus_torch", "_build", "core.lock")
@@ -37,40 +53,104 @@ HANDLER_FN = ctypes.CFUNCTYPE(
 )
 
 
-def _stale() -> bool:
-    if not os.path.exists(_LIB):
+def _stale(lib: str, sources: List[str]) -> bool:
+    if not os.path.exists(lib):
         return True
-    lib_mtime = os.path.getmtime(_LIB)
-    for root, _dirs, files in os.walk(_CPP):
-        if root.startswith(os.path.join(_CPP, "build")):
+    lib_mtime = os.path.getmtime(lib)
+    for top in sources:
+        if os.path.isfile(top):
+            if os.path.getmtime(top) > lib_mtime:
+                return True
             continue
-        for f in files:
-            if f.endswith((".h", ".cc", ".cpp", ".S", ".txt")):
-                if os.path.getmtime(os.path.join(root, f)) > lib_mtime:
-                    return True
+        for root, _dirs, files in os.walk(top):
+            if root.startswith(os.path.join(_CPP, "build")):
+                continue
+            for f in files:
+                if f.endswith((".h", ".cc", ".cpp", ".S", ".txt")):
+                    if os.path.getmtime(os.path.join(root, f)) > lib_mtime:
+                        return True
     return False
 
 
-def build() -> str:
-    """Builds libtbus.so if needed; returns its path."""
-    override = os.environ.get(_ENV_LIB)
-    if override:
-        return override
+def _compiles(header: str) -> bool:
+    """Whether the C++ compiler finds `header`."""
+    try:
+        proc = subprocess.run(
+            ["g++", "-x", "c++", "-fsyntax-only", "-"],
+            input=f"#include <{header}>\n", capture_output=True, text=True)
+    except OSError:
+        return False
+    return proc.returncode == 0
+
+
+_has_protobuf = None
+
+
+def has_protobuf() -> bool:
+    """Whether this host can build the standard core (protobuf headers)."""
+    global _has_protobuf
+    if _has_protobuf is None:
+        _has_protobuf = _compiles("google/protobuf/service.h")
+    return _has_protobuf
+
+
+def _build_core(lib: str, sources: List[str], configure: List[str],
+                build_dir: str) -> str:
     with _lock:
-        if not _stale():
-            return _LIB
+        if not _stale(lib, sources):
+            return lib
         os.makedirs(os.path.dirname(_LOCK_FILE), exist_ok=True)
         with open(_LOCK_FILE, "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
-            if not _stale():  # another process built it meanwhile
-                return _LIB
-            subprocess.run(
-                ["cmake", "-B", _BUILD, "-G", "Ninja",
-                 "-DCMAKE_BUILD_TYPE=RelWithDebInfo"],
-                cwd=_CPP, check=True, capture_output=True, text=True)
-            subprocess.run(["ninja", "-C", _BUILD, "tbus"], cwd=_CPP,
+            if not _stale(lib, sources):  # another process built it
+                return lib
+            subprocess.run(configure, cwd=_REPO, check=True,
+                           capture_output=True, text=True)
+            subprocess.run(["ninja", "-C", build_dir, "tbus"], cwd=_REPO,
                            check=True, capture_output=True, text=True)
-    return _LIB
+    return lib
+
+
+def build() -> str:
+    """Builds libtbus.so if needed (the standard core where protobuf's
+    headers are found, else the protobuf-free one); returns its path."""
+    override = os.environ.get(_ENV_LIB)
+    if override:
+        return override
+    if has_protobuf():
+        return _build_core(
+            _LIB, [_CPP],
+            ["cmake", "-S", _CPP, "-B", _BUILD, "-G", "Ninja",
+             "-DCMAKE_BUILD_TYPE=RelWithDebInfo"], _BUILD)
+    # The bridges build with `g++` (tbus_torch/kernels/_build.py), so the
+    # core does too, whatever CXX says: one compiler's headers on both
+    # sides, and its libstdc++ linked as a shared library. (On the H100
+    # machine CXX names a GCC that links libstdc++ statically; a core
+    # carrying its own copy, loaded into a PyTorch process, crashed on
+    # its first LOG of a number.)
+    return _build_core(
+        _PB_FREE_LIB,
+        [_CPP, os.path.join(_PORT_CSRC, "core"), _PB_SHIM,
+         os.path.join(_PORT_CSRC, "pb_absent.cc")],
+        ["cmake", "-S", os.path.join(_PORT_CSRC, "core"), "-B",
+         _PB_FREE_BUILD, "-G", "Ninja", "-DCMAKE_BUILD_TYPE=RelWithDebInfo",
+         f"-DCMAKE_CXX_COMPILER={shutil.which('g++') or 'g++'}"],
+        _PB_FREE_BUILD)
+
+
+def core_flavor() -> str:
+    """"protobuf" or "protobuf-free": the flavour of the core this process
+    loaded (building it if needed)."""
+    return ("protobuf-free" if hasattr(lib(), "tbus_core_without_protobuf")
+            else "protobuf")
+
+
+def core_include_flags() -> List[str]:
+    """The include path a library linked to the loaded core must be built
+    with: the same headers the core was built with."""
+    cpp = ["-I", _CPP]
+    return (["-I", _PB_SHIM] + cpp if core_flavor() == "protobuf-free"
+            else cpp)
 
 
 def loaded():
@@ -146,6 +226,25 @@ def _annotate(L: ctypes.CDLL) -> None:
     L.tbus_pchan_call.restype = c_int
     L.tbus_pchan_free.argtypes = [c_void_p]
     L.tbus_pchan_free.restype = None
+
+    ull, ll, dbl = ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_double
+    L.tbus_stream_create.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_char_p, ctypes.c_size_t, ll, c_char_p]
+    L.tbus_stream_create.restype = ull
+    L.tbus_stream_write.argtypes = [ull, c_char_p, ctypes.c_size_t, ll]
+    L.tbus_stream_write.restype = c_int
+    L.tbus_stream_read.argtypes = [
+        ull, ctypes.POINTER(c_void_p), ctypes.POINTER(ctypes.c_size_t), ll]
+    L.tbus_stream_read.restype = c_int
+    L.tbus_stream_close.argtypes = [ull]
+    L.tbus_stream_close.restype = c_int
+
+    L.tbus_serve_stats_json.argtypes = []
+    L.tbus_serve_stats_json.restype = c_void_p
+    L.tbus_bench_serve.argtypes = [
+        c_char_p, c_char_p, c_char_p, c_int, c_int, ll, ll, dbl, ll,
+        *[ctypes.POINTER(dbl)] * 6, *[ctypes.POINTER(ll)] * 4, c_char_p]
+    L.tbus_bench_serve.restype = c_int
 
     L.tbus_advertise_device_method.argtypes = [c_char_p, c_char_p, c_char_p]
     L.tbus_advertise_device_method.restype = None

@@ -1,0 +1,440 @@
+// The C++ device plane's programs, for Hopper: K4 u8_transform, K5 dot128
+// and K6 dotbench. The CUDA runtime (cuda_backend.cu, driven from the
+// dispatch thread of cuda_runtime.cc) launches them from C++; the ctypes
+// wrappers in tbus_torch/kernels/device_programs.py launch the same
+// functions on PyTorch tensors. Plain C interface; each function launches
+// on the given stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError().
+//
+// K4, tbus_u8_transform — replaces cpp/tpu/serve_engine.cc:28 step_mlir
+// (the serving step, u8[bucket * token_bytes]) and the echo / xor255 /
+// incr bodies of cpp/tpu/pjrt_runtime.cc:191 build_mlir (device methods,
+// u8[length class]). out[i] = in[i], in[i] ^ 0xFF or in[i] + 1 mod 256.
+// Bound: bytes, n read and n written at 3.35 TB/s (0.63 us at 1 MiB,
+// 0.16 us at the 256 KiB serving step): launch overhead dominates at these
+// sizes. Design: 16-byte loads and stores (per-byte add by __vadd4) over a
+// grid-stride loop, a scalar pass for the ragged tail, and an all-scalar
+// path when either pointer is not 16-byte aligned. No length prefix (the
+// row transform of row_transform.cu has one).
+//
+// K5, tbus_dot128 — replaces pjrt_runtime.cc:207 dot128: y = x . W for
+// x f32[k, 128] (the payload's bytes as little-endian f32) and
+// W[i, j] = ((3i + 5j) mod 11 - 5) / 8, at precision HIGHEST, so in true
+// f32: fused multiply-adds on the CUDA cores, summed over i = 0..127 in
+// order, no TF32. W is generated by every block in shared memory (64 KiB
+// of f32), as the reference generates it on the device. Bound: operations,
+// 2 * k * 128 * 128 flops at 67 TFLOP/s (1.0 us at k = 2048; the bytes,
+// 2 MiB, take 0.63 us). Design: one 128-thread block per 16 rows of x,
+// thread j owning output column j; a row of x is read from shared memory
+// as a broadcast, W[i, j] once per i for the 16 rows.
+//
+// K6, tbus_dotbench — replaces pjrt_runtime.cc:245 dotbench<N>x<T>: the
+// f32 seed is rounded to bf16; A0[i, j] = bf16(bf16(((i + j) mod 7 - 3) /
+// 8) + seed); W as dot128's, in bf16; T times v <- bf16(bf16(v . W) *
+// bf16(1/N)) with each product summed in f32 on the tensor cores and
+// rounded once; then the sum of v's N * N elements in f32, rounded once to
+// bf16 and returned as f32. Bound: operations, T * 2 * N^3 flops at 989
+// TFLOP/s (4.45 ms for dotbench4096x32); the checksum reads 2 N^2 bytes.
+// Design: the operands live in device scratch the caller gives, padded to
+// Np = N rounded up to 128 with zeros (zero rows and columns stay zero
+// through the chain and add nothing to the sum), so no tile is ragged;
+// W is stored transposed (n-major), so both operands are k-contiguous.
+// The product is a 128 x 128 x 32 tiled mma.sync m16n8k16 kernel (8 warps
+// of 64 x 32, ldmatrix fragments, rows padded to 80 bytes) fed by a
+// 4-stage cp.async pipeline, with the bf16 rounding and the scale in its
+// epilogue; the checksum is a two-pass reduction in a fixed order (block
+// partials, then one block), so it is the same from run to run. Only the
+// 4-byte seed and the 4-byte result cross PCIe. No TMA or wgmma yet.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ---- K4 ----
+
+__global__ void u8_transform_kernel(const uint8_t* __restrict__ in,
+                                    uint8_t* __restrict__ out, long long n,
+                                    int op, int vector) {
+  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = 0;
+  if (vector) {
+    const long long n16 = n >> 4;
+    const uint4* src = reinterpret_cast<const uint4*>(in);
+    uint4* dst = reinterpret_cast<uint4*>(out);
+    for (long long c = tid; c < n16; c += stride) {
+      uint4 v = src[c];
+      if (op == 1) {
+        v.x ^= 0xFFFFFFFFu; v.y ^= 0xFFFFFFFFu;
+        v.z ^= 0xFFFFFFFFu; v.w ^= 0xFFFFFFFFu;
+      } else if (op == 2) {
+        v.x = __vadd4(v.x, 0x01010101u); v.y = __vadd4(v.y, 0x01010101u);
+        v.z = __vadd4(v.z, 0x01010101u); v.w = __vadd4(v.w, 0x01010101u);
+      }
+      dst[c] = v;
+    }
+    head = n16 << 4;
+  }
+  for (long long i = head + tid; i < n; i += stride) {
+    const uint8_t b = in[i];
+    out[i] = op == 1 ? uint8_t(b ^ 0xFF) : op == 2 ? uint8_t(b + 1) : b;
+  }
+}
+
+// ---- K5 ----
+
+constexpr int kDotCols = 128;
+constexpr int kDotRows = 16;  // rows of x per block
+constexpr int kDotSmem = (kDotCols * kDotCols + kDotRows * kDotCols) * 4;
+
+__global__ void __launch_bounds__(kDotCols)
+dot128_kernel(const float* __restrict__ x, float* __restrict__ y, int k) {
+  extern __shared__ __align__(16) float dsm[];
+  float* w = dsm;                         // [128][128], w[i * 128 + j]
+  float* xs = dsm + kDotCols * kDotCols;  // [kDotRows][128]
+  const int t = threadIdx.x;
+  for (int e = t; e < kDotCols * kDotCols; e += kDotCols) {
+    const int i = e >> 7, j = e & 127;
+    w[e] = float((3 * i + 5 * j) % 11 - 5) * 0.125f;
+  }
+  const long long row0 = (long long)blockIdx.x * kDotRows;
+  for (int e = t; e < kDotRows * kDotCols / 4; e += kDotCols) {
+    const int r = e / (kDotCols / 4), c4 = e % (kDotCols / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < k) {
+      v = reinterpret_cast<const float4*>(x + (row0 + r) * kDotCols)[c4];
+    }
+    reinterpret_cast<float4*>(xs + r * kDotCols)[c4] = v;
+  }
+  __syncthreads();
+  float acc[kDotRows];
+#pragma unroll
+  for (int r = 0; r < kDotRows; ++r) acc[r] = 0.f;
+  for (int i = 0; i < kDotCols; ++i) {
+    const float wi = w[i * kDotCols + t];
+#pragma unroll
+    for (int r = 0; r < kDotRows; ++r) {
+      acc[r] = fmaf(xs[r * kDotCols + i], wi, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kDotRows; ++r) {
+    if (row0 + r < k) y[(row0 + r) * kDotCols + t] = acc[r];
+  }
+}
+
+// ---- K6 ----
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Wt[n][k] = W[k][n] and A0, both [np][np] bf16, zero outside [n][n].
+__global__ void dotbench_init_kernel(const float* __restrict__ seed,
+                                     __nv_bfloat16* __restrict__ wt,
+                                     __nv_bfloat16* __restrict__ a0, int n,
+                                     int np) {
+  const float s = bf16_round(*seed);
+  const long long total = (long long)np * np;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    const int r = int(e / np), c = int(e % np);
+    float wv = 0.f, av = 0.f;
+    if (r < n && c < n) {
+      // Wt row r is W's column r: W[k = c][n = r].
+      wv = float((3 * c + 5 * r) % 11 - 5) * 0.125f;
+      av = bf16_round(float((r + c) % 7 - 3) * 0.125f) + s;
+    }
+    wt[e] = __float2bfloat16_rn(wv);
+    a0[e] = __float2bfloat16_rn(av);
+  }
+}
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kLds = kBK + 8;  // bf16 per shared row: 80 bytes
+constexpr int kStages = 4;
+constexpr int kTileElems = kBM * kLds;  // one operand's tile in one stage
+constexpr int kGemmSmem = kStages * 2 * kTileElems * 2;  // bytes
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-slice of both operands into stage buffers: 128 rows x 32 bf16 =
+// 4 chunks of 16 bytes per row; each of the 256 threads copies 2 chunks
+// of each operand.
+__device__ __forceinline__ void load_stage(
+    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ bt,
+    int np, long long row0, long long col0, int k0, __nv_bfloat16* as,
+    __nv_bfloat16* bs, int tid) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int chunk = tid + h * kThreads;
+    const int r = chunk >> 2, c = (chunk & 3) * 8;
+    cp_async16(as + r * kLds + c, a + (row0 + r) * np + k0 + c);
+    cp_async16(bs + r * kLds + c, bt + (col0 + r) * np + k0 + c);
+  }
+}
+
+// out = bf16(bf16(a . W) * inv), a [np][np] row-major, bt = W^T [np][np];
+// np a multiple of 128.
+__global__ void __launch_bounds__(kThreads)
+dotbench_step_kernel(const __nv_bfloat16* __restrict__ a,
+                     const __nv_bfloat16* __restrict__ bt,
+                     __nv_bfloat16* __restrict__ out, int np, float inv) {
+  extern __shared__ __align__(16) __nv_bfloat16 gsm[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const long long row0 = (long long)blockIdx.y * kBM;
+  const long long col0 = (long long)blockIdx.x * kBN;
+  const int kt_n = np / kBK;
+  auto a_stage = [&](int s) { return gsm + s * 2 * kTileElems; };
+  auto b_stage = [&](int s) { return gsm + s * 2 * kTileElems + kTileElems; };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < kt_n) {
+      load_stage(a, bt, np, row0, col0, s * kBK, a_stage(s), b_stage(s), tid);
+    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free to refill
+    const int next = kt + kStages - 1;
+    if (next < kt_n) {
+      const int s = next % kStages;
+      load_stage(a, bt, np, row0, col0, next * kBK, a_stage(s), b_stage(s),
+                 tid);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* as = a_stage(kt % kStages);
+    const __nv_bfloat16* bs = b_stage(kt % kStages);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        ldsm_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * kLds + kk +
+                            (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; nj += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, bs + (wn + nj * 8 + (lane & 7) + ((lane >> 4) << 3)) *
+                            kLds + kk + ((lane >> 3) & 1) * 8);
+        bf[nj][0] = r[0]; bf[nj][1] = r[1];
+        bf[nj + 1][0] = r[2]; bf[nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const long long r = row0 + wm + mi * 16 + g;
+      const long long c = col0 + wn + ni * 8 + t2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+        const float d0 = bf16_round(acc[mi][ni][2 * h]);
+        const float d1 = bf16_round(acc[mi][ni][2 * h + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(out + (r + 8 * h) * np + c) =
+            __floats2bfloat162_rn(d0 * inv, d1 * inv);
+      }
+    }
+  }
+}
+
+constexpr int kSumBlocks = 1024;
+
+// Pass 1: block b sums elements b*256 + t, stepping by the whole grid, in
+// f32, then its threads in a fixed tree.
+__global__ void __launch_bounds__(kThreads)
+dotbench_sum_partial(const __nv_bfloat16* __restrict__ v, long long count,
+                     float* __restrict__ partial) {
+  __shared__ float red[kThreads];
+  float s = 0.f;
+  for (long long e = blockIdx.x * (long long)kThreads + threadIdx.x;
+       e < count; e += (long long)gridDim.x * kThreads) {
+    s += __bfloat162float(v[e]);
+  }
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) partial[blockIdx.x] = red[0];
+}
+
+// Pass 2: one block sums the partials, rounds once to bf16, writes f32.
+__global__ void __launch_bounds__(kThreads)
+dotbench_sum_final(const float* __restrict__ partial, int n,
+                   float* __restrict__ out) {
+  __shared__ float red[kThreads];
+  float s = 0.f;
+  for (int e = threadIdx.x; e < n; e += kThreads) s += partial[e];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = bf16_round(red[0]);
+}
+
+int g_num_sms = 0;
+
+int num_sms() {
+  if (g_num_sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&g_num_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (g_num_sms <= 0) g_num_sms = 132;
+  }
+  return g_num_sms;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4. op: 0 echo (copy), 1 xor255, 2 incr.
+int tbus_u8_transform(const void* in, void* out, long long n, int op,
+                      void* stream) {
+  if (op < 0 || op > 2 || n < 0) return int(cudaErrorInvalidValue);
+  if (n == 0) return int(cudaSuccess);
+  const int vector = ((reinterpret_cast<uintptr_t>(in) |
+                       reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const long long work = vector ? (n >> 4) : n;
+  long long blocks = (work + kThreads - 1) / kThreads;
+  const long long cap = (long long)num_sms() * 8;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  u8_transform_kernel<<<unsigned(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), n, op,
+      vector);
+  return int(cudaGetLastError());
+}
+
+// K5. x and y f32[k][128], 16-byte aligned.
+int tbus_dot128(const void* x, void* y, long long k, void* stream) {
+  if (k < 0 || k > 0x7fffffffll ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) &
+       15)) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (k == 0) return int(cudaSuccess);
+  static bool attr_set = false;  // first call per process
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dot128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDotSmem);
+    if (e != cudaSuccess) return int(e);
+    attr_set = true;
+  }
+  const long long blocks = (k + kDotRows - 1) / kDotRows;
+  dot128_kernel<<<unsigned(blocks), kDotCols, kDotSmem,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), int(k));
+  return int(cudaGetLastError());
+}
+
+// Np for dotbench's scratch: n rounded up to a multiple of 128.
+long long tbus_dotbench_padded(long long n) { return (n + 127) / 128 * 128; }
+
+// Bytes of f32 partials dotbench's checksum needs.
+long long tbus_dotbench_partial_bytes(void) { return kSumBlocks * 4; }
+
+// K6. seed: one f32 on the device. wt, v0, v1: bf16 [np][np] scratch
+// (np = tbus_dotbench_padded(n)); partial: tbus_dotbench_partial_bytes();
+// out: one f32 on the device. The last matrix is left in v0 when t is
+// even, else in v1.
+int tbus_dotbench(const void* seed, void* wt, void* v0, void* v1,
+                  void* partial, void* out, long long n, long long t,
+                  float inv, void* stream) {
+  if (n < 1 || t < 0 || n > 65536) return int(cudaErrorInvalidValue);
+  const int np = int(tbus_dotbench_padded(n));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dotbench_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kGemmSmem);
+    if (e != cudaSuccess) return int(e);
+    attr_set = true;
+  }
+  auto* w = static_cast<__nv_bfloat16*>(wt);
+  __nv_bfloat16* bufs[2] = {static_cast<__nv_bfloat16*>(v0),
+                            static_cast<__nv_bfloat16*>(v1)};
+  const long long total = (long long)np * np;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > (long long)num_sms() * 8) blocks = (long long)num_sms() * 8;
+  dotbench_init_kernel<<<unsigned(blocks), kThreads, 0, s>>>(
+      static_cast<const float*>(seed), w, bufs[0], int(n), np);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid(unsigned(np / kBN), unsigned(np / kBM));
+  for (long long k = 0; k < t; ++k) {
+    dotbench_step_kernel<<<grid, kThreads, kGemmSmem, s>>>(
+        bufs[k & 1], w, bufs[(k + 1) & 1], np, inv);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+  }
+  dotbench_sum_partial<<<kSumBlocks, kThreads, 0, s>>>(
+      bufs[t & 1], total, static_cast<float*>(partial));
+  dotbench_sum_final<<<1, kThreads, 0, s>>>(
+      static_cast<const float*>(partial), kSumBlocks,
+      static_cast<float*>(out));
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,13 +1,19 @@
 """Builds the port's native pieces at first use into tbus_torch/_build/.
 
 - the CUDA kernels, one ``nvcc`` per source: ``row_transform.cu``,
-  ``gemm_bf16.cu`` (K1, K2) and ``ring_fold.cu`` (K3), each into its own
-  ``lib<name>.so`` with a plain C interface, loaded with ctypes (seconds
-  to build; :func:`build_kernels` starts them all together);
-- the fan-out bridge: ``g++`` -> ``libtbus_torch_fanout.so``, linked to the
-  C++ core's ``libtbus.so`` (no CUDA);
+  ``gemm_bf16.cu`` (K1, K2), ``ring_fold.cu`` (K3) and
+  ``device_programs.cu`` (K4-K6), each into its own ``lib<name>.so`` with
+  a plain C interface, loaded with ctypes (seconds to build;
+  :func:`build_kernels` starts them all together);
+- the device runtime's CUDA backend: ``nvcc`` -> ``libcuda_backend.so``
+  (``cuda_backend.cu``), linked to ``libdevice_programs.so``;
+- the two bridges to the C++ core, ``g++`` against its ``libtbus.so`` with
+  the headers that core was built with (no CUDA): the fan-out bridge
+  ``libtbus_torch_fanout.so`` and the device runtime with its mounts
+  ``libtbus_torch_device.so`` (``cuda_runtime.cc``, ``serve_engine.cc``,
+  ``device_bridge.cc``);
 - the C++ core itself, through :func:`tbus_torch._native.build`, when it is
-  missing.
+  missing (the protobuf-free flavour where protobuf's headers are absent).
 
 Each output's file name carries a hash of its sources and flags, so a
 changed source builds anew and a stale library is never loaded. Builds
@@ -158,9 +164,34 @@ def ring_fold_lib() -> ctypes.CDLL:
          _I)])
 
 
+def device_programs_lib() -> ctypes.CDLL:
+    """The device plane's programs, K4-K6 (csrc/device_programs.cu)."""
+    return _cuda_lib("device_programs", [
+        ("tbus_u8_transform", [_VP, _VP, _LL, _I, _VP], _I),
+        ("tbus_dot128", [_VP, _VP, _LL, _VP], _I),
+        ("tbus_dotbench_padded", [_LL], _LL),
+        ("tbus_dotbench_partial_bytes", [], _LL),
+        ("tbus_dotbench",
+         [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _F, _VP], _I)])
+
+
+def cuda_backend() -> str:
+    """Path of the device runtime's CUDA backend (csrc/cuda_backend.cu),
+    built with nvcc and linked to libdevice_programs.so; the runtime
+    loads it itself (CudaRuntime::Init("cuda"))."""
+    programs = device_programs_lib()._name
+    src = os.path.join(_CSRC, "cuda_backend.cu")
+    link = [programs, "-Xlinker", "-rpath", "-Xlinker",
+            os.path.dirname(programs)]
+    return _build("cuda_backend", "libcuda_backend.so",
+                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src, *link],
+                  ([src], NVCC_FLAGS + [programs]))
+
+
 def build_kernels() -> None:
-    """Builds every kernel library at once, one nvcc per source."""
-    libs = (row_transform_lib, gemm_lib, ring_fold_lib)
+    """Builds every kernel library at once, one nvcc per source (the
+    device runtime's backend right after its kernels)."""
+    libs = (row_transform_lib, gemm_lib, ring_fold_lib, cuda_backend)
     errors: List[BaseException] = []
 
     def run(fn: Callable[[], ctypes.CDLL]) -> None:
@@ -187,18 +218,12 @@ def fanout_bridge_lib() -> ctypes.CDLL:
     lib = _loaded.get("torch_fanout")  # the per-call fast path
     if lib is not None:
         return lib
-    core_lib = os.path.abspath(core())
-    _native.lib()
     src = os.path.join(_CSRC, "torch_fanout.cc")
     hdrs = [os.path.join(_REPO, "cpp", p) for p in (
         "rpc/fanout_hooks.h", "tpu/device_registry.h", "tpu/native_fanout.h",
         "base/iobuf.h", "fiber/sync.h")]
-    core_dir = os.path.dirname(core_lib)
-    flags = GXX_FLAGS + ["-I", os.path.join(_REPO, "cpp")]
-    link = [core_lib, f"-Wl,-rpath,{core_dir}", "-lpthread"]
-    path = _build("torch_fanout", "libtbus_torch_fanout.so",
-                  lambda tmp: ["g++", *flags, "-o", tmp, src, *link],
-                  ([src, *hdrs], flags + [core_lib]))
+    path = _core_bridge("torch_fanout", "libtbus_torch_fanout.so", [src],
+                        hdrs)
     vp, ll, i, cp = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_char_p)
     return _load("torch_fanout", path, [
@@ -213,3 +238,49 @@ def fanout_bridge_lib() -> ctypes.CDLL:
         ("tbus_torch_batch_payload", [vp, i, ctypes.POINTER(vp)], ll),
         ("tbus_torch_batch_set_response", [vp, i, ll, cp, ll], i),
         ("tbus_torch_batch_done", [vp, i], i)])
+
+
+def _core_bridge(name: str, out_name: str, srcs: List[str],
+                 hdrs: List[str]) -> str:
+    """g++ builds `srcs` into a library linked to the loaded core, with
+    the include path that core was built with. Loaded after libtbus.so
+    (through _native.lib()), so the dynamic loader binds the bridge's
+    NEEDED libtbus.so to that same instance: one registry of each kind."""
+    core_lib = os.path.abspath(core())
+    _native.lib()
+    flags = GXX_FLAGS + _native.core_include_flags()
+    link = [core_lib, f"-Wl,-rpath,{os.path.dirname(core_lib)}", "-lpthread",
+            "-ldl"]
+    return _build(name, out_name,
+                  lambda tmp: ["g++", *flags, "-o", tmp, *srcs, *link],
+                  (srcs + hdrs, flags + [core_lib]))
+
+
+def device_bridge_lib() -> ctypes.CDLL:
+    """The device runtime and its server mounts (csrc/cuda_runtime.cc,
+    serve_engine.cc, device_bridge.cc), built with g++ against the core."""
+    lib = _loaded.get("torch_device")
+    if lib is not None:
+        return lib
+    srcs = [os.path.join(_CSRC, f) for f in (
+        "cuda_runtime.cc", "serve_engine.cc", "device_bridge.cc")]
+    hdrs = [os.path.join(_CSRC, f) for f in (
+        "cuda_runtime.h", "serve_engine.h")] + [
+        os.path.join(_REPO, "cpp", p) for p in (
+            "rpc/serve_batch.h", "rpc/server.h", "base/iobuf.h",
+            "fiber/sync.h")]
+    path = _core_bridge("torch_device", "libtbus_torch_device.so", srcs, hdrs)
+    vp, ll, i, cp = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_char_p)
+    return _load("torch_device", path, [
+        ("tbus_torch_device_init", [cp, cp, cp, i], i),
+        ("tbus_torch_device_available", [], i),
+        ("tbus_torch_device_stats_json", [], vp),
+        ("tbus_torch_device_reset_launches", [], None),
+        ("tbus_torch_server_add_device_method", [vp, cp, cp, cp], i),
+        ("tbus_torch_server_add_generate_method",
+         [vp, cp, cp, cp, ll, ll, i, ll], i),
+        ("tbus_torch_serve_engines_json", [], vp),
+        ("tbus_torch_device_burst", [cp, ll, i, ctypes.POINTER(i)], i),
+        ("tbus_torch_device_run_into",
+         [cp, cp, ll, vp, ll, ll, ctypes.POINTER(ll)], i)])

@@ -3,17 +3,22 @@
 The port's own subset of tbus/rpc.py: servers, channels and the
 ParallelChannel whose all-tpu:// fan-outs lower onto the port's runtime
 once :func:`enable_torch_fanout` has installed the C++ bridge
-(tbus_torch/csrc/torch_fanout.cc). Server handlers registered from
-Python run inside fibers on the native worker fleet; ctypes re-acquires
-the GIL per callback.
+(tbus_torch/csrc/torch_fanout.cc); token streams, the serving bench and
+its stats; and the C++ device plane (tbus_torch/csrc/cuda_runtime.cc):
+:func:`device_init`, ``Server.add_device_method`` and
+``Server.add_generate_method``, whose device work runs on the runtime's
+own dispatch thread with no Python on the path. Server handlers
+registered from Python run inside fibers on the native worker fleet;
+ctypes re-acquires the GIL per callback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import threading
 import traceback
-from typing import Callable
+from typing import Callable, Optional
 
 from tbus_torch import _native
 
@@ -27,6 +32,62 @@ class RpcError(Exception):
 
 def init(nworkers: int = 0) -> None:
     _native.lib().tbus_init(nworkers)
+
+
+def _take_str(p: Optional[int]) -> str:
+    """A malloc'd C string from the core or a bridge, freed here."""
+    if not p:
+        return ""
+    try:
+        return ctypes.string_at(p).decode()
+    finally:
+        _native.lib().tbus_buf_free(ctypes.cast(p, ctypes.c_char_p))
+
+
+# ---- the device runtime (tbus_torch/csrc/cuda_runtime.cc) ----
+
+def _device_bridge() -> ctypes.CDLL:
+    from tbus_torch.kernels import _build
+
+    return _build.device_bridge_lib()
+
+
+def device_init(device: str = "cuda") -> None:
+    """Brings up the port's C++ device runtime, once per process: "cuda"
+    builds the kernels and the CUDA backend and opens the first card;
+    "cpu" runs the same programs as plain C++ loops, and only when asked.
+    Raises RuntimeError when the runtime cannot come up (no card for
+    "cuda"); nothing falls back from one device to the other."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    backend = None
+    if device == "cuda":
+        from tbus_torch.kernels import _build
+
+        backend = _build.cuda_backend().encode()
+    err = ctypes.create_string_buffer(512)
+    if _device_bridge().tbus_torch_device_init(
+            device.encode(), backend, err, len(err)) != 0:
+        raise RuntimeError(f"device runtime on {device}: "
+                           f"{err.value.decode(errors='replace')}")
+
+
+def device_available() -> bool:
+    """Whether the device runtime is up in this process."""
+    return _device_bridge().tbus_torch_device_available() == 1
+
+
+def device_stats() -> dict:
+    """The device runtime's counters: platform, device, plans, executions,
+    h2d/d2h bytes, errors, overcrowded jobs, and each kernel's launches
+    (on the CUDA backend)."""
+    return json.loads(_take_str(
+        _device_bridge().tbus_torch_device_stats_json()))
+
+
+def reset_device_launches() -> None:
+    """Sets the runtime's per-kernel launch counts to 0."""
+    _device_bridge().tbus_torch_device_reset_launches()
 
 
 # ---- the torch collective fan-out backend ----
@@ -230,6 +291,39 @@ class Server:
         if rc != 0:
             raise RuntimeError(f"add_method failed: {rc}")
 
+    def add_device_method(self, service: str, method: str,
+                          transform: str = "echo") -> None:
+        """Mounts a handler whose payload round-trips through the device
+        via the port's C++ runtime (device_init first; it is needed once
+        a request arrives). transform: "echo" (the bytes still cross the
+        device), "xor255", "incr", "dot128" (f32[k,128] . W) or
+        "dotbench<N>x<T>" (4-byte f32 seed -> 4-byte checksum)."""
+        rc = _device_bridge().tbus_torch_server_add_device_method(
+            self._h, service.encode(), method.encode(), transform.encode())
+        if rc != 0:
+            raise RuntimeError(f"add_device_method failed: {rc}")
+
+    def add_generate_method(self, service: str = "GenService",
+                            method: str = "Generate",
+                            transform: str = "incr", max_batch: int = 64,
+                            token_bytes: int = 4096, batched: bool = True,
+                            max_queue: int = 1024) -> None:
+        """Mounts a continuous-batching generate method (cpp/rpc/
+        serve_batch.h) whose every fused step runs through the device
+        runtime's step engine: requests carry u32le ntokens + a prompt and
+        an offered stream; tokens stream back per step (the transform
+        applied to the prompt-seeded state each step). batched=False
+        mounts the per-request baseline. Raises when the step engine
+        cannot be made (runtime not up, unknown transform): it never
+        serves from the host engine instead."""
+        rc = _device_bridge().tbus_torch_server_add_generate_method(
+            self._h, service.encode(), method.encode(), transform.encode(),
+            max_batch, token_bytes, 1 if batched else 0, max_queue)
+        if rc != 0:
+            raise RuntimeError(
+                f"add_generate_method failed: {rc} (is the device runtime "
+                f"up, and is {transform!r} echo, xor255 or incr?)")
+
     def start(self, port: int = 0) -> int:
         rc = self._L.tbus_server_start(self._h, port)
         if rc != 0:
@@ -297,3 +391,120 @@ class Channel:
             self._L.tbus_channel_free(self._h)
         except Exception:
             pass
+
+
+class Stream:
+    """One half of an ordered, flow-controlled chunk stream (rpc/stream.h).
+
+    Client side: Stream.create(channel, service, method) offers a stream
+    alongside the RPC. write() blocks through window backpressure up to
+    its timeout; read() pops buffered inbound chunks."""
+
+    def __init__(self, sid: int) -> None:
+        self._L = _native.lib()
+        self._sid = sid
+        self._closed = False
+
+    @classmethod
+    def create(cls, channel: Channel, service: str, method: str,
+               request: bytes = b"", max_buf_size: int = 0) -> "Stream":
+        L = _native.lib()
+        err = ctypes.create_string_buffer(256)
+        sid = L.tbus_stream_create(
+            channel._h, service.encode(), method.encode(), request,
+            len(request), max_buf_size, err)
+        if not sid:
+            raise RpcError(-1, "stream create failed: "
+                           + err.value.decode(errors="replace"))
+        return cls(sid)
+
+    @property
+    def id(self) -> int:
+        return self._sid
+
+    def write(self, chunk: bytes, timeout_ms: int = 10000) -> None:
+        rc = self._L.tbus_stream_write(self._sid, chunk, len(chunk),
+                                       timeout_ms)
+        if rc != 0:
+            raise RpcError(rc, f"stream write failed: {rc}")
+
+    def read(self, timeout_ms: int = 10000) -> Optional[bytes]:
+        """Next inbound chunk; None once the stream closed and drained."""
+        out = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        rc = self._L.tbus_stream_read(self._sid, ctypes.byref(out),
+                                      ctypes.byref(out_len), timeout_ms)
+        if rc == 0:
+            try:
+                return ctypes.string_at(out.value, out_len.value) \
+                    if out_len.value else b""
+            finally:
+                self._L.tbus_buf_free(ctypes.cast(out, ctypes.c_char_p))
+        if rc == 2005:  # ECLOSE: closed and drained
+            return None
+        raise RpcError(rc, f"stream read failed: {rc}")
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            self._L.tbus_stream_close(self._sid)
+
+    def __enter__(self) -> "Stream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def bench_serve(addr: str, service: str = "GenService",
+                method: str = "Generate", concurrency: int = 8,
+                duration_ms: int = 2000, ntokens: int = 16,
+                token_bytes: int = 4096, qps: float = 0,
+                timeout_ms: int = 1000) -> dict:
+    """Native serving bench: `concurrency` fibers issue generate calls
+    (each consuming `ntokens` streamed tokens) for duration_ms; qps > 0
+    paces the offered load. Reports token throughput, completed-sequence
+    goodput, client-observed TTFT and inter-token gap percentiles (us),
+    and the ok/shed/timedout/other split."""
+    L = _native.lib()
+    L.tbus_init(0)
+    dbl = [ctypes.c_double() for _ in range(6)]
+    cnt = [ctypes.c_longlong() for _ in range(4)]
+    err = ctypes.create_string_buffer(256)
+    rc = L.tbus_bench_serve(
+        addr.encode(), service.encode(), method.encode(), concurrency,
+        duration_ms, ntokens, token_bytes, qps, timeout_ms,
+        *[ctypes.byref(v) for v in dbl], *[ctypes.byref(v) for v in cnt],
+        err)
+    if rc != 0:
+        raise RpcError(rc, "bench_serve failed: "
+                       + err.value.decode(errors="replace"))
+    keys = ("token_qps", "seq_qps", "ttft_p50_us", "ttft_p99_us",
+            "gap_p50_us", "gap_p99_us", "ok", "shed", "timedout", "other")
+    return dict(zip(keys, [v.value for v in dbl + cnt]))
+
+
+def serve_stats() -> list:
+    """Per-mounted-scheduler serving stats (admitted/completed/steps/
+    tokens/shed taxonomy/plan hits and misses/batch occupancy); a
+    scheduler mounted by Server.add_generate_method also names its step
+    engine ("cuda", or "cpu" on the CPU backend) with its steps and
+    failures."""
+    stats = json.loads(_take_str(_native.lib().tbus_serve_stats_json())
+                       or "[]")
+    from tbus_torch.kernels import _build
+
+    bridge = _build._loaded.get("torch_device")
+    if bridge is not None:
+        engines = {e["name"]: e for e in json.loads(
+            _take_str(bridge.tbus_torch_serve_engines_json()))}
+        for st in stats:
+            st.update({k: v for k, v in engines.get(st["name"], {}).items()
+                       if k != "name"})
+    return stats

@@ -1,0 +1,147 @@
+"""The device plane's kernels K4-K6 against their plain versions, and the
+CUDA runtime's two mounts end to end, on the card.
+
+The kernels have no CPU mode, so these tests skip without an NVIDIA card.
+This file imports no JAX, so it runs on GPU hosts without JAX; run it
+there without tests/conftest.py, which imports JAX:
+
+    python -m pytest -m cuda --noconftest tests/test_torch_device_cuda.py
+
+Tolerances: K4 exact bytes. K5 within 2 * 128 * 2^-24 * (|x| @ |W|), the
+gap two f32 sums of 128 products in different orders can open. K6: the
+last matrix within one bf16 ulp per element plus (2^-7 + n * 2^-24) *
+bf16(1/n) * (|v_prev| @ |W|) (an input's one-ulp difference and the f32
+order, carried through the last product); the checksum within (2^-7 +
+n * 2^-24) * sum|v|.
+"""
+
+import struct
+
+import numpy as np
+import pytest
+import torch
+
+from tbus_torch.kernels import device_programs as dp
+from tbus_torch.kernels import ieee_fp32
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+
+
+def _bf16_ulp(a):
+    _, e = torch.frexp(a.abs().double())
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float64),
+                       torch.clamp(e - 8, min=-133))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transform", ["echo", "xor255", "incr"])
+def test_u8_transform_matches_plain_version(transform):
+    _need_card()
+    rng = np.random.default_rng(11)
+    raw = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 64,
+                                        dtype=np.uint8)).cuda()
+    for n in (0, 1, 15, 16, 17, 4095, 4096, 4097, 64 * 4096, (1 << 20) + 1):
+        for off in (0, 1, 3):
+            x = raw[off:off + n]
+            before = dp.u8_launches
+            got = dp.u8_transform(x, transform)
+            assert dp.u8_launches == before + (1 if n else 0)
+            assert torch.equal(got, dp.u8_transform_reference(x, transform)), (
+                transform, n, off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 17, 64, 1000, 2048, 4096])
+def test_dot128_matches_plain_version(k):
+    _need_card()
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((k, 128),
+                                             dtype=np.float32)).cuda()
+    got, want = dp.dot128(x), dp.dot128_reference(x)
+    with ieee_fp32():
+        tol = 2 * 128 * 2.0**-24 * (x.abs() @ dp.dot128_weight("cuda").abs())
+    assert bool(((got - want).abs() <= tol).all()), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(128, 1), (128, 4), (256, 2), (130, 2),
+                                 (1000, 3), (2048, 4)])
+def test_dotbench_matches_plain_version(n, t):
+    _need_card()
+    seed = 0.375
+    got_sum, got_last = dp.dotbench(torch.tensor([seed], device="cuda"), n,
+                                    t, return_last=True)
+    want_sum, want_last = dp.dotbench_reference(seed, n, t, "cuda",
+                                                return_last=True)
+    prev = dp.dotbench_reference(seed, n, t - 1, "cuda", return_last=True)[1]
+    _, w = dp.dotbench_operands(seed, n, "cuda")
+    inv = float(dp.dotbench_inverse(n))
+    with ieee_fp32():
+        mag = (prev.float().abs() @ w.float().abs()).double() * inv
+    a, b = got_last.double(), want_last.double()
+    tol = _bf16_ulp(torch.maximum(a.abs(), b.abs())) + (
+        2.0**-7 + n * 2.0**-24) * mag
+    assert bool(((a - b).abs() <= tol).all())
+    sum_tol = (2.0**-7 + n * 2.0**-24) * float(b.abs().sum())
+    assert abs(float(got_sum.reshape(())) - float(want_sum)) <= sum_tol
+
+
+@pytest.mark.cuda
+def test_cuda_runtime_mounts_serve_over_rpc():
+    """Device methods and a generate method on the CUDA runtime, called
+    over RPC: replies equal the plain versions, tokens are byte-exact, the
+    serving stats name the CUDA engine, and every kernel's launch count
+    rises."""
+    _need_card()
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    tt.device_init("cuda")
+    s = tt.Server()
+    for tf in ("echo", "xor255", "incr", "dot128", "dotbench256x2"):
+        s.add_device_method("DevCuda", tf, tf)
+    s.add_generate_method("GenCuda", "Generate", "xor255", max_batch=8,
+                          token_bytes=128)
+    port = s.start(0)
+    try:
+        rpc.reset_device_launches()
+        ch = tt.Channel(f"127.0.0.1:{port}", timeout_ms=30000)
+        rng = np.random.default_rng(5)
+        for n in (1, 127, 4097, (1 << 20) + 1):
+            p = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            for tf in ("echo", "xor255", "incr"):
+                assert ch.call("DevCuda", tf, p) == \
+                    dp.device_method_reference(tf, p), (tf, n)
+        x = rng.standard_normal((8, 128), dtype=np.float32)
+        y = np.frombuffer(ch.call("DevCuda", "dot128", x.tobytes()),
+                          dtype=np.float32).reshape(8, 128)
+        want = dp.dot128_reference(torch.from_numpy(x)).numpy()
+        tol = 2 * 128 * 2.0**-24 * (np.abs(x) @ np.abs(
+            dp.dot128_weight().numpy()))
+        assert (np.abs(y - want) <= tol).all()
+        got = struct.unpack("<f", ch.call("DevCuda", "dotbench256x2",
+                                          struct.pack("<f", 0.5)))[0]
+        want_sum, last = dp.dotbench_reference(0.5, 256, 2, "cuda",
+                                               return_last=True)
+        assert abs(got - float(want_sum)) <= (2.0**-7 + 256 * 2.0**-24) * \
+            float(last.float().abs().sum())
+        with pytest.raises(tt.RpcError, match="multiple of 512"):
+            ch.call("DevCuda", "dot128", b"\0" * 100)
+        req = struct.pack("<I", 4) + b"xy"
+        with tt.Stream.create(ch, "GenCuda", "Generate", req) as st:
+            state = np.frombuffer((b"xy" * 64)[:128], dtype=np.uint8)
+            for _ in range(4):
+                state = state ^ 0xFF
+                assert st.read(timeout_ms=30000) == state.tobytes()
+            assert st.read(timeout_ms=30000) is None
+        launches = rpc.device_stats()["launches"]
+        assert min(launches.values()) > 0, launches
+        gen = [g for g in tt.serve_stats() if g["name"] == "GenCuda.Generate"]
+        assert gen and gen[0]["engine"] == "cuda"
+        assert gen[0]["engine_steps"] == gen[0]["steps"] > 0
+    finally:
+        s.stop()

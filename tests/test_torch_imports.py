@@ -61,7 +61,9 @@ _EXPECTED = [
     "tbus_torch/kernels/gemm.py", "tbus_torch/kernels/ring_fold.py",
     "tbus_torch/entry.py", "tests/test_torch_row_transform_cuda.py",
     "tests/test_torch_gemm_cuda.py", "tests/test_torch_ring_fold_cuda.py",
-    "tests/test_torch_entry_cuda.py",
+    "tests/test_torch_entry_cuda.py", "tbus_torch/kernels/device_programs.py",
+    "tbus_torch/rpc.py", "tbus_torch/_native.py",
+    "tests/test_torch_device_cuda.py",
 ]
 
 
