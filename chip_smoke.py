@@ -23,6 +23,14 @@ continuous-batching generate method on a loopback server, every payload
 through the runtime's dispatch thread and kernels K4 u8_transform, K5
 dot128 and K6 dotbench (tbus_torch/csrc/device_programs.cu).
 
+Path 4, the fused fan-out engine (tbus_torch/csrc/cuda_fanout.cc, the
+port of cpp/tpu/native_fanout.cc) with DMA registration of the block
+pool (cudaHostRegister through the reference's table, cpp/tpu/pjrt_dma.h,
+armed before the first init): an 8-way ParallelChannel call answered by
+one execution of K7 (tbus_torch/csrc/device_programs.cu tbus_fanout)
+with no Python on the path, the PartitionChannel scatter, tensor-parallel
+serving over 4 shard servers, and the device stream sink with its bench.
+
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
@@ -55,8 +63,22 @@ token_bytes 4096: 64 concurrent streams of 16 tokens checked byte for
 byte, then bench_serve for 2 s, with serve_stats naming the CUDA engine;
 (xiv) path 1's RPC leg: a ParallelChannel to 8 tpu:// servers, p2p and
 then lowered through the torch fan-out bridge, byte-equal, p50/p99 at
-4 KiB and 1 MiB. Any failure exits nonzero; the last line is the device
-JSON only on success.
+4 KiB and 1 MiB; (xv) K7 against its plain version (broadcast and
+scatter, the three builtins, n in 1, 8, 64, buckets 128 B to 1 MiB, a
+ragged one and an unaligned input), timed at path 4's shapes beside its
+bound and the library call (x.expand(n, -1) ^ 255, .clone()); (xvi) path
+4 with the runtime's launch counts reset before and read after: (b) the
+8-way fan-out over 8 tpu:// servers through enable_native_fanout in this
+process (which ran the torch leg), echo/xor255/add_peer_index at 4 KiB
+and 1 MiB, byte-equal to p2p (compared inside at divergence permille
+1000, then returned at 0), p50/p99 beside p2p; (c) PartitionChannel
+scatter, 8 partitions x 1 MiB; (d) tensor-parallel generate over 4 shard
+servers, 64 streams x 16 tokens of 4 KiB byte-exact, then bench_serve,
+with fallback_steps 0; (e) bench_device_stream, 256 MiB in 1 MiB chunks,
+xor255, echo on, every chunk counted by the sink; each with the DMA
+tripwires and donation/alias hits; (xvii) path 4 again in a child with
+DMA registration off. Any failure exits nonzero; the last line is the
+device JSON only on success.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -1039,7 +1061,8 @@ def phase_device_methods(torch, dev, port):
         if not _device_reply_ok(torch, m, p, replies[(m, k)]):
             raise AssertionError(f"device method {m} at {k} differs from "
                                  f"its plain version")
-    if after["platform"] != "cuda" or min(launches.values()) <= 0:
+    if after["platform"] != "cuda" or min(
+            launches[k] for k in ("u8_transform", "dot128", "dotbench")) <= 0:
         raise AssertionError(f"path 3a missed a kernel: {launches}")
     say(f"every reply equals its plain version on the card: "
         f"{', '.join(f'{m}/{k}' for m, k, _ in calls)}; launches on the "
@@ -1222,6 +1245,435 @@ def phase_rpc_leg(dev):
     return out
 
 
+# ---- path 4: the fused fan-out engine (tbus_torch/csrc/cuda_fanout.cc) ----
+
+# K7's checks: (n, bucket) over the three builtins, broadcast and scatter.
+# n = 4 and buckets 1 KiB to 64 KiB are path 4d's serving steps (a step of
+# 1 to 64 rows of 4 KiB scattered over 4 shards), 4 KiB and 1 MiB are 4b's
+# and 4c's, 6144 is a half-step length class; bucket 1000 is ragged (the
+# kernel's scalar path).
+FANOUT_N = (1, 4, 8, 64)
+FANOUT_BUCKETS = (128, 1000, 1024, 2048, 4096, 6144, 8192, 16384, 32768,
+                  65536, 1 << 20)
+FANOUT_CHECKS = [(n, b) for n in FANOUT_N for b in FANOUT_BUCKETS]
+# Timed at the main path's shapes: path 4b's 8 x 4 KiB and 8 x 1 MiB
+# broadcasts, 4c's 8 x 1 MiB scatter and 4d's 4 x 64 KiB serving step.
+FANOUT_TIMED = [(8, 4096, False), (8, 1 << 20, False), (8, 1 << 20, True),
+                (4, 1 << 16, True)]
+NATIVE_SERVICE = "NativeRpc"
+NATIVE_METHODS = {"Echo": ("echo", "echo/v1"), "Xor": ("xor255", "xor255/v1"),
+                  "Add": ("add_peer_index", "add_peer_index/v1")}
+TP_SHARDS = 4
+SINK_BYTES, SINK_CHUNK = 256 << 20, 1 << 20
+
+
+def phase_fanout_kernel(torch, dev):
+    phase("kernel K7: the fused fan-out against its plain version")
+    from tbus_torch.kernels import fanout as fk
+
+    rng = np.random.default_rng(SEED + 30)
+    cases = 0
+    for n, bucket in FANOUT_CHECKS:
+        for scatter in (False, True):
+            size = n * bucket if scatter else bucket
+            raw = torch.from_numpy(rng.integers(0, 256, size + 1,
+                                                dtype=np.uint8)).cuda()
+            for x in (raw[:size], raw[1:]):  # aligned, and one byte in
+                for builtin in fk.BUILTINS:
+                    got = fk.fanout(x, n, bucket, scatter, builtin)
+                    if not torch.equal(got, fk.fanout_plain(
+                            x, n, bucket, scatter, builtin)):
+                        raise AssertionError(
+                            f"K7 {builtin} n={n} bucket={bucket} "
+                            f"scatter={scatter} differs from its plain "
+                            f"version")
+                    cases += 1
+    torch.cuda.synchronize()
+    say(f"K7 byte-equal to fanout_plain in {cases} cases: "
+        f"{', '.join(fk.BUILTINS)} x broadcast/scatter x n in {FANOUT_N} x "
+        f"bucket in {FANOUT_BUCKETS} (1000 ragged), aligned and unaligned")
+    shapes = []
+    for n, bucket, scatter in FANOUT_TIMED:
+        size = n * bucket if scatter else bucket
+        x = torch.from_numpy(rng.integers(0, 256, size,
+                                          dtype=np.uint8)).cuda()
+        for builtin in fk.BUILTINS:  # the timed inputs themselves
+            if not torch.equal(fk.fanout(x, n, bucket, scatter, builtin),
+                               fk.fanout_plain(x, n, bucket, scatter,
+                                               builtin)):
+                raise AssertionError(
+                    f"K7 {builtin} n={n} bucket={bucket} scatter={scatter} "
+                    f"differs from its plain version on the timed input")
+        # The kernel's device time with its input out of L2 (50 MiB on
+        # the H100): the timed launches cycle through copies of the input
+        # that together hold more than 3x L2.
+        copies = [x.clone() for _ in range(max(2, -(-(160 << 20) // (
+            size + n * bucket))))]
+        turn = iter(range(1 << 30))
+        cold = lambda: fk.fanout(  # noqa: E731
+            copies[next(turn) % len(copies)], n, bucket, scatter, "xor255")
+        launch = lambda: fk.fanout(x, n, bucket, scatter, "xor255")  # noqa
+        iters = 200 if n * bucket <= (1 << 20) else 50
+        ms = _kernel_device_ms(torch, cold, iters, "fanout_kernel")
+        hot_ms = _kernel_device_ms(torch, launch, iters, "fanout_kernel")
+        call_ms = _cuda_ms(torch, launch, iters)
+        plain_ms = _cuda_ms(torch, lambda: fk.fanout_plain(
+            x, n, bucket, scatter, "xor255"), iters)
+        rows = x.view(n, bucket) if scatter else x.view(1, bucket).expand(
+            n, bucket)
+        lib_ms = _cuda_ms(torch, lambda: rows ^ 255, iters)
+        lib_clone_ms = _cuda_ms(torch, lambda: rows.clone(), iters)
+        nbytes = size + n * bucket
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes.append({"n": n, "bucket": bucket, "scatter": scatter,
+                       "ms": ms, "l2_hot_ms": hot_ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "library_clone_ms": lib_clone_ms,
+                       "bound_ms": bound_ms})
+        say(f"K7 xor255 {'scatter' if scatter else 'broadcast'} n={n} "
+            f"bucket={bucket}: {ms * 1e3:.2f} us on the device, input out "
+            f"of L2 ({hot_ms * 1e3:.2f} us with it in L2) (bound "
+            f"{bound_ms * 1e3:.3f} us, bytes, {nbytes} of them; "
+            f"{bound_ms / ms * 100:.1f}%); wrapper call {call_ms * 1e3:.2f} "
+            f"us; plain {plain_ms * 1e3:.2f} us; library "
+            f"{'x.view(n, -1)' if scatter else 'x.expand(n, -1)'} ^ 255 "
+            f"{lib_ms * 1e3:.2f} us, .clone() {lib_clone_ms * 1e3:.2f} us "
+            f"[{dev['smi']}]")
+    return {"max_abs_err": 0, "shapes": shapes, **shapes[1]}
+
+
+def _dma_line(tag, before, after):
+    keys = ("h2d_copy_bytes", "d2h_copy_bytes", "donation_hits",
+            "donation_misses", "alias_hits", "alias_misses", "reg_failures")
+    delta = {k: after[k] - before[k] for k in keys}
+    delta["enabled"] = after["enabled"]
+    delta["host_registered"] = after["host_registered"]
+    say(f"  DMA {tag}: {json.dumps(delta)}")
+    return delta
+
+
+def _advertise_native(tt):
+    for method, (_, impl) in NATIVE_METHODS.items():
+        tt.advertise_device_method(NATIVE_SERVICE, method, impl)
+    tt.advertise_device_method("GenTPShard", "Generate", "serve/v1")
+
+
+def _native_fleet(tt):
+    """Eight tpu:// servers answering the builtins' p2p twins."""
+    servers, ports = [], []
+    for i in range(N_PEERS):
+        s = tt.Server()
+        s.add_echo(NATIVE_SERVICE, "Echo")
+        s.add_method(NATIVE_SERVICE, "Xor", tt.builtin_handler("xor255"))
+        s.add_method(NATIVE_SERVICE, "Add",
+                     tt.builtin_handler("add_peer_index", i))
+        servers.append(s)
+        ports.append(s.start(0))
+    return servers, ports
+
+
+def phase_path4(dev, quick=False):
+    """Path 4 (b)-(e) in this process: returns its numbers. quick: the
+    children's window (fewer timed calls, no profile, 128 MiB streamed)."""
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    _advertise_native(tt)  # before the servers start: adverts ride the
+    # tpu:// handshake
+    dma_on = rpc.device_dma_stats()["enabled"]
+    tag = "DMA on" if dma_on else "DMA off"
+    res = {"dma": dma_on, "lat": {}, "dma_stats": {}}
+    rng = np.random.default_rng(SEED + 31)
+    servers, ports = _native_fleet(tt)
+    pchan = tt.ParallelChannel()
+    for p in ports:
+        pchan.add(f"tpu://127.0.0.1:{p}")
+    if not pchan.collective_eligible:
+        raise AssertionError("path 4: the 8 tpu:// servers are not eligible")
+    payloads = {k: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                for k, n in SIZES.items()}
+    p2p = {(m, k): pchan.call(NATIVE_SERVICE, m, p, 30000)
+           for m in NATIVE_METHODS for k, p in payloads.items()}
+    for (m, k), got in p2p.items():
+        want = b"".join(_p2p_answers(NATIVE_METHODS[m][0], payloads[k]))
+        if got != want:
+            raise AssertionError(f"p2p {m} {k}")
+    n_lat = {"4KiB": 100 if quick else 200, "1MiB": 20 if quick else 30}
+    for k, p in payloads.items():
+        lat = _latencies(lambda: pchan.call(NATIVE_SERVICE, "Echo", p, 30000),
+                         n_lat[k])
+        res["lat"][f"p2p/{k}"] = {"p50_us": _pctl(lat, 50),
+                                  "p99_us": _pctl(lat, 99), "n": len(lat)}
+
+    # (b) The C++ engine, in the process that ran the torch leg.
+    phase(f"main path 4b: ParallelChannel x{N_PEERS} lowered by the C++ "
+          f"engine onto K7 ({tag})")
+    if not tt.enable_native_fanout():
+        raise AssertionError("enable_native_fanout failed")
+    for m, (builtin, impl) in NATIVE_METHODS.items():
+        tt.register_native_device_method(NATIVE_SERVICE, m, builtin, impl)
+    st0, dev0, dma0 = (tt.native_fanout_stats(), rpc.device_stats(),
+                       rpc.device_dma_stats())
+    tt.flag_set("tbus_fanout_divergence_permille", 1000)
+    for (m, k), want in p2p.items():
+        # At 1000 the p2p bytes are served and the lowered ones compared.
+        if pchan.call(NATIVE_SERVICE, m, payloads[k], 30000) != want:
+            raise AssertionError(f"guarded {m} {k}")
+    tt.flag_set("tbus_fanout_divergence_permille", 0)
+    for (m, k), want in p2p.items():
+        if pchan.call(NATIVE_SERVICE, m, payloads[k], 30000) != want:
+            raise AssertionError(f"lowered {m} {k} differs from p2p")
+    st1, dev1 = tt.native_fanout_stats(), rpc.device_stats()
+    calls = 2 * len(p2p)
+    lowered = st1["lowered_calls"] - st0["lowered_calls"]
+    execs = st1["device_execs"] - st0["device_execs"]
+    k7 = dev1["launches"]["fanout"] - dev0["launches"]["fanout"]
+    if (lowered != calls or execs != calls or k7 != calls
+            or st1["divergence_checked"] - st0["divergence_checked"]
+            != len(p2p) or st1["divergence_mismatch"] != 0):
+        raise AssertionError(f"path 4b counts: {calls} calls, {st1}, "
+                             f"K7 launches {k7}")
+    say(f"lowered == p2p byte for byte: {', '.join(NATIVE_METHODS)} at "
+        f"{', '.join(SIZES)} over {N_PEERS} peers, compared inside at "
+        f"permille 1000 ({len(p2p)} checked, 0 mismatched) and returned at "
+        f"0; {calls} lowered calls = {execs} device_execs = {k7} K7 "
+        f"launches")
+    res["dma_stats"]["b"] = _dma_line(f"4b {tag} (byte checks)", dma0,
+                                      rpc.device_dma_stats())
+    for k, p in payloads.items():
+        d0 = rpc.device_dma_stats()
+        for _ in range(3):
+            pchan.call(NATIVE_SERVICE, "Echo", p, 30000)
+        lat = _latencies(lambda: pchan.call(NATIVE_SERVICE, "Echo", p, 30000),
+                         n_lat[k])
+        res["lat"][f"native/{k}"] = {"p50_us": _pctl(lat, 50),
+                                     "p99_us": _pctl(lat, 99),
+                                     "n": len(lat)}
+        res["dma_stats"][f"b/{k}"] = _dma_line(f"4b {tag} echo {k} timed",
+                                               d0, rpc.device_dma_stats())
+    if not quick:
+        import torch
+
+        for k, p in payloads.items():
+            n = 30 if k == "4KiB" else 10
+            wall_us, prof = _device_profile(torch, lambda: pchan.call(
+                NATIVE_SERVICE, "Echo", p, 30000), n)
+            busy = sum(r[1] for r in prof)
+            for key, us, cnt in prof[:4]:
+                say(f"  4b {k} call: device {us:9.1f} us x{cnt:g}  "
+                    f"{key[:60]}")
+            res.setdefault("busy", {})[k] = {"wall_us": wall_us / n,
+                                             "device_us": busy}
+            say(f"4b {k} lowered call: wall {wall_us / n:.0f} us, device "
+                f"busy {busy:.1f} us = {busy / (wall_us / n) * 100:.1f}% "
+                f"[{dev['smi']}]")
+    for key in ("p2p/4KiB", "native/4KiB", "p2p/1MiB", "native/1MiB"):
+        v = res["lat"][key]
+        say(f"ParallelChannel x{N_PEERS} tpu:// {key} ({tag}): p50 "
+            f"{v['p50_us']:.0f} us p99 {v['p99_us']:.0f} us (n={v['n']}) "
+            f"[{dev['smi']}]")
+
+    # (c) PartitionChannel scatter: 8 partitions x 1 MiB.
+    phase(f"main path 4c: PartitionChannel scatter, {N_PEERS} x 1 MiB "
+          f"({tag})")
+    url = "list://" + ",".join(f"tpu://127.0.0.1:{p} {i}/{N_PEERS}"
+                               for i, p in enumerate(ports))
+    part = tt.PartitionChannel(N_PEERS, url)
+    if not part.collective_eligible:
+        raise AssertionError("path 4c: partitions are not eligible")
+    body = rng.integers(0, 256, N_PEERS << 20, dtype=np.uint8)
+    rows = body.reshape(N_PEERS, 1 << 20)
+    want = {"Echo": body.tobytes(), "Xor": (body ^ 0xFF).tobytes(),
+            "Add": (rows + np.arange(N_PEERS, dtype=np.uint8)[:, None]
+                    ).tobytes()}
+    st0, dma0 = tt.native_fanout_stats(), rpc.device_dma_stats()
+    for m in NATIVE_METHODS:
+        part.call(NATIVE_SERVICE, m, body.tobytes(), 30000)  # warm sockets
+    tt.flag_set("tbus_fanout_divergence_permille", 1000)
+    for m, w in want.items():
+        if part.call(NATIVE_SERVICE, m, body.tobytes(), 30000) != w:
+            raise AssertionError(f"guarded partition {m}")
+    tt.flag_set("tbus_fanout_divergence_permille", 0)
+    for m, w in want.items():
+        if part.call(NATIVE_SERVICE, m, body.tobytes(), 30000) != w:
+            raise AssertionError(f"lowered partition {m} is wrong")
+    st1 = tt.native_fanout_stats()
+    scattered = st1["scatter_calls"] - st0["scatter_calls"]
+    if scattered < 2 * len(want) or st1["divergence_mismatch"] != 0:
+        raise AssertionError(f"path 4c did not lower: {st1}")
+    res["dma_stats"]["c"] = _dma_line(f"4c {tag}", dma0,
+                                      rpc.device_dma_stats())
+    b8 = body.tobytes()
+    lat = _latencies(lambda: part.call(NATIVE_SERVICE, "Xor", b8, 30000),
+                     10 if quick else 20)
+    res["lat"]["scatter/8x1MiB"] = {"p50_us": _pctl(lat, 50),
+                                    "p99_us": _pctl(lat, 99), "n": len(lat)}
+    say(f"partition scatter 8 x 1 MiB == the builtins' answers "
+        f"({', '.join(want)}); {scattered} scatter calls lowered; xor255 "
+        f"p50 {_pctl(lat, 50):.0f} us p99 {_pctl(lat, 99):.0f} us "
+        f"({tag}) [{dev['smi']}]")
+    for s in servers:
+        s.stop()
+
+    # (d) Tensor-parallel serving over 4 shard servers.
+    phase(f"main path 4d: tensor-parallel generate over {TP_SHARDS} shards "
+          f"({tag})")
+    shards, shard_ports = [], []
+    for _ in range(TP_SHARDS):
+        s = tt.Server()
+        s.add_method("GenTPShard", "Generate", tt.builtin_handler("xor255"))
+        shards.append(s)
+        shard_ports.append(s.start(0))
+    adverts0 = tt.native_fanout_stats()["advertised_peers"]
+    hs = [tt.Channel(f"tpu://127.0.0.1:{p}", timeout_ms=10000)
+          for p in shard_ports]  # the links carry the adverts: kept open
+    for ch in hs:
+        ch.call("GenTPShard", "Generate", b"hs")
+    deadline = time.monotonic() + 10
+    while (tt.native_fanout_stats()["advertised_peers"] < adverts0
+           + TP_SHARDS and time.monotonic() < deadline):
+        time.sleep(0.005)
+    gen = tt.Server()
+    gen.add_generate_method(
+        "GenTP", "Generate", "xor255", max_batch=64, token_bytes=4096,
+        peers=",".join(f"127.0.0.1:{p}" for p in shard_ports))
+    gport = gen.start(0)
+    fs0, dma0 = tt.fanout_step_stats(), rpc.device_dma_stats()
+    errors, n_streams, ntokens = [], 64, 16
+
+    def one(i):
+        try:
+            ch = tt.Channel(f"127.0.0.1:{gport}", timeout_ms=60000)
+            prompt = f"tp-prompt-{i:03d}".encode()
+            want_t = _token_truth("xor255", prompt, ntokens)
+            req = struct.pack("<I", ntokens) + prompt
+            with tt.Stream.create(ch, "GenTP", "Generate", req) as st:
+                for k in range(ntokens):
+                    if st.read(timeout_ms=60000) != want_t[k]:
+                        raise AssertionError(f"tp stream {i} token {k}")
+                if st.read(timeout_ms=60000) is not None:
+                    raise AssertionError(f"tp stream {i}: no clean end")
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(n_streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    fs1 = tt.fanout_step_stats()
+    if fs1["fallback_steps"] != fs0["fallback_steps"] or \
+            fs1["collective_steps"] <= fs0["collective_steps"]:
+        raise AssertionError(f"path 4d steps: {fs0} -> {fs1}")
+    say(f"{n_streams} streams x {ntokens} tokens of 4096 bytes byte-exact; "
+        f"{fs1['collective_steps'] - fs0['collective_steps']} steps as one "
+        f"ScatterGather each, fallback_steps 0")
+    bench = tt.bench_serve(f"127.0.0.1:{gport}", "GenTP", "Generate",
+                           concurrency=64, duration_ms=1000 if quick
+                           else 2000, ntokens=ntokens, token_bytes=4096,
+                           timeout_ms=10000)
+    fs2 = tt.fanout_step_stats()
+    if bench["ok"] <= 0 or bench["other"] or bench["timedout"] or \
+            fs2["fallback_steps"] != fs0["fallback_steps"]:
+        raise AssertionError(f"path 4d bench: {bench} {fs2}")
+    res["serve"] = {**bench, "collective_steps":
+                    fs2["collective_steps"] - fs0["collective_steps"],
+                    "fallback_steps": 0}
+    res["dma_stats"]["d"] = _dma_line(f"4d {tag}", dma0,
+                                      rpc.device_dma_stats())
+    say(f"bench_serve tensor-parallel 64 x {ntokens} tokens ({tag}): "
+        f"{bench['token_qps']:.0f} tokens/s, {bench['seq_qps']:.0f} seq/s, "
+        f"TTFT p50 {bench['ttft_p50_us']:.0f} us p99 "
+        f"{bench['ttft_p99_us']:.0f} us, gap p50 {bench['gap_p50_us']:.0f} "
+        f"us p99 {bench['gap_p99_us']:.0f} us, ok {bench['ok']}; "
+        f"collective steps {res['serve']['collective_steps']}, fallback 0 "
+        f"[{dev['smi']}]")
+    gen.stop()
+    for s in shards:
+        s.stop()
+    del hs
+
+    # (e) The device stream sink.
+    phase(f"main path 4e: device stream sink, {SINK_BYTES >> 20} MiB in "
+          f"1 MiB chunks ({tag})")
+    sink = tt.Server()
+    sink.add_device_stream_sink("DeviceStream", "Sink", "xor255", echo=True)
+    sport = sink.start(0)
+    ss0, dma0 = tt.stream_sink_stats(), rpc.device_dma_stats()
+    total = SINK_BYTES // 2 if quick else SINK_BYTES
+    r = tt.bench_device_stream(f"tpu://127.0.0.1:{sport}", total, SINK_CHUNK,
+                               "xor255")
+    deadline = time.monotonic() + 30
+    while (tt.stream_sink_stats()["chunks"] - ss0["chunks"] < r["chunks"]
+           and time.monotonic() < deadline):
+        time.sleep(0.01)
+    ss1 = tt.stream_sink_stats()
+    sunk = ss1["chunks"] - ss0["chunks"]
+    if r["chunks"] != total // SINK_CHUNK or sunk != r["chunks"] or \
+            ss1["failures"] != ss0["failures"]:
+        raise AssertionError(f"path 4e: {r}, sink {ss0} -> {ss1}")
+    res["sink"] = {**r, "sunk_chunks": sunk}
+    res["dma_stats"]["e"] = _dma_line(f"4e {tag}", dma0,
+                                      rpc.device_dma_stats())
+    say(f"bench_device_stream {total >> 20} MiB ({tag}): "
+        f"{r['goodput_MBps']:.0f} MB/s, gap p50 {r['gap_p50_us']:.0f} us "
+        f"p99 {r['gap_p99_us']:.0f} us, {r['chunks']} chunks produced on "
+        f"the device, {sunk} run through the sink's device [{dev['smi']}]")
+    sink.stop()
+    return res
+
+
+def phase_path4_pair():
+    """Path 4 (b)-(e) again in two like child processes, the DMA table
+    armed in one and off in the other, over the same window: the pair
+    that says what registration changes."""
+    out = {}
+    for mode in ("on", "off"):
+        phase(f"path 4 in a child process, DMA {mode}")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--path4-child",
+             mode], capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, TBUS_PJRT_DMA="0"))
+        for line in proc.stdout.splitlines():
+            if line.startswith(("  ", "ParallelChannel", "bench", "partition",
+                                "lowered ==", "64 streams", "==")):
+                say(f"  [child, DMA {mode}] {line.strip()}")
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"the DMA-{mode} child failed:\n{proc.stdout[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+        out[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    return out
+
+
+def path4_child(mode):
+    """Entry of a path-4 child: the DMA table armed before the pool comes
+    up (mode "on") or left off ("off"), the runtime on the card, then path
+    4 (b)-(e) in its child window; the last line is its JSON."""
+    import torch
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    dev = {"name": torch.cuda.get_device_name(0), "smi": smi.splitlines()[0]}
+    if mode == "on":
+        tt.device_enable_dma()
+    tt.init()
+    tt.device_init("cuda")
+    if rpc.device_dma_stats()["enabled"] != (mode == "on"):
+        raise AssertionError(f"the DMA-{mode} child has the table "
+                             f"{rpc.device_dma_stats()['enabled']}")
+    res = phase_path4(dev, quick=True)
+    say(json.dumps(res))
+    return 0
+
+
 def main():
     import torch
 
@@ -1229,6 +1681,13 @@ def main():
     if dev is None:
         return 1
     flavor = phase_build()
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    # DMA registration is armed before the block pool comes up (the first
+    # init), so every region it carves is registered; path 4 runs again in
+    # two like children, with it armed and off.
+    tt.device_enable_dma()
     shapes, max_err = phase_kernel(torch, dev)
     phase_runtime()
     launches = phase_main(dev)
@@ -1239,16 +1698,48 @@ def main():
         counts = phase_entry(torch, dev, tmp)
     phase_dryrun()
     dp_recs = phase_device_kernels(torch, dev)
-    import tbus_torch as tt
-
+    k7_rec = phase_fanout_kernel(torch, dev)
     tt.device_init("cuda")
+    say(f"DMA table at runtime start: {json.dumps(rpc.device_dma_stats())}")
     server, port = _device_server()
     try:
         dm_launches, _, _ = phase_device_methods(torch, dev, port)
         serve_launches, _ = phase_serving(torch, dev, port)
     finally:
         server.stop()
-    phase_rpc_leg(dev)
+    torch_leg = phase_rpc_leg(dev)
+    # Path 4's run: every count starts at 0 here.
+    rpc.reset_device_launches()
+    path4 = phase_path4(dev)
+    k7_launches = rpc.device_stats()["launches"]["fanout"]
+    if k7_launches <= 0:
+        raise AssertionError("path 4 missed K7")
+    say(f"launches on path 4: {json.dumps(rpc.device_stats()['launches'])}")
+    pair = phase_path4_pair()
+    for key in ("4KiB", "1MiB"):
+        lat = {m: pair[m]["lat"] for m in ("on", "off")}
+        say(f"ParallelChannel x{N_PEERS} {key} p50/p99 us: p2p "
+            f"{path4['lat'][f'p2p/{key}']['p50_us']:.0f}/"
+            f"{path4['lat'][f'p2p/{key}']['p99_us']:.0f}, torch-lowered "
+            f"{torch_leg[f'lowered/{key}']['p50_us']:.0f}/"
+            f"{torch_leg[f'lowered/{key}']['p99_us']:.0f}, C++ engine "
+            f"{path4['lat'][f'native/{key}']['p50_us']:.0f}/"
+            f"{path4['lat'][f'native/{key}']['p99_us']:.0f} (DMA on); like "
+            f"children, same window: DMA on p2p "
+            f"{lat['on'][f'p2p/{key}']['p50_us']:.0f}/"
+            f"{lat['on'][f'p2p/{key}']['p99_us']:.0f} C++ engine "
+            f"{lat['on'][f'native/{key}']['p50_us']:.0f}/"
+            f"{lat['on'][f'native/{key}']['p99_us']:.0f}, DMA off p2p "
+            f"{lat['off'][f'p2p/{key}']['p50_us']:.0f}/"
+            f"{lat['off'][f'p2p/{key}']['p99_us']:.0f} C++ engine "
+            f"{lat['off'][f'native/{key}']['p50_us']:.0f}/"
+            f"{lat['off'][f'native/{key}']['p99_us']:.0f} [{dev['smi']}]")
+    for part in ("b", "c", "d", "e"):
+        say(f"path 4{part} main, DMA on: "
+            f"{json.dumps(path4['dma_stats'][part])}")
+        for m in ("on", "off"):
+            say(f"path 4{part} child, DMA {m}: "
+                f"{json.dumps(pair[m]['dma_stats'][part])}")
     say(f"core flavour: {flavor}")
     main_shape = shapes[1]  # the fused 1 MiB batch
     big = gemm_recs[GEMM_SHAPES[1]]
@@ -1313,6 +1804,16 @@ def main():
             "library_ms": rec["library_ms"], "shape": shape,
             "detail": rec,
         })
+    kernels.append({
+        "name": "fanout", "route": "cuda",
+        "source": "tbus_torch/csrc/device_programs.cu",
+        "replaces": "cpp/tpu/native_fanout.cc:166",
+        "launches": k7_launches, "match": True,
+        "max_abs_err": k7_rec["max_abs_err"], "ms": k7_rec["ms"],
+        "plain_ms": k7_rec["plain_ms"], "bound_ms": k7_rec["bound_ms"],
+        "bound_by": "bytes", "library_ms": k7_rec["library_ms"],
+        "shape": [8, 1 << 20], "shapes": k7_rec["shapes"],
+    })
     say(dev["smi"])
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
@@ -1322,7 +1823,8 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        code = path4_child(sys.argv[2]) if sys.argv[1:2] == [
+            "--path4-child"] else main()
     except Exception:
         traceback.print_exc()
         code = 1

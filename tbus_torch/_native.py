@@ -227,6 +227,18 @@ def _annotate(L: ctypes.CDLL) -> None:
     L.tbus_pchan_free.argtypes = [c_void_p]
     L.tbus_pchan_free.restype = None
 
+    L.tbus_partchan_new.argtypes = [c_int, c_char_p, c_char_p, c_int, c_int]
+    L.tbus_partchan_new.restype = c_void_p
+    L.tbus_partchan_eligible.argtypes = [c_void_p]
+    L.tbus_partchan_eligible.restype = c_int
+    L.tbus_partchan_call.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_char_p, ctypes.c_size_t,
+        ctypes.c_int64, ctypes.POINTER(c_void_p),
+        ctypes.POINTER(ctypes.c_size_t)]
+    L.tbus_partchan_call.restype = c_int
+    L.tbus_partchan_free.argtypes = [c_void_p]
+    L.tbus_partchan_free.restype = None
+
     ull, ll, dbl = ctypes.c_ulonglong, ctypes.c_longlong, ctypes.c_double
     L.tbus_stream_create.argtypes = [
         c_void_p, c_char_p, c_char_p, c_char_p, ctypes.c_size_t, ll, c_char_p]
@@ -250,3 +262,14 @@ def _annotate(L: ctypes.CDLL) -> None:
     L.tbus_advertise_device_method.restype = None
     L.tbus_set_device_impl_id.argtypes = [c_char_p, c_char_p, c_char_p]
     L.tbus_set_device_impl_id.restype = None
+
+    L.tbus_pjrt_enable_dma.argtypes = []
+    L.tbus_pjrt_enable_dma.restype = c_int
+    L.tbus_flag_set.argtypes = [c_char_p, c_char_p]
+    L.tbus_flag_set.restype = c_int
+    L.tbus_var_value.argtypes = [c_char_p]
+    L.tbus_var_value.restype = c_void_p
+    L.tbus_fi_set.argtypes = [c_char_p, ll, ll, ll]
+    L.tbus_fi_set.restype = c_int
+    L.tbus_fi_disable_all.argtypes = []
+    L.tbus_fi_disable_all.restype = None

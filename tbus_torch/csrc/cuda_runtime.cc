@@ -20,6 +20,8 @@
 #include "rpc/controller.h"
 #include "rpc/errors.h"
 #include "rpc/server.h"
+#include "tpu/block_pool.h"
+#include "tpu/pjrt_dma.h"
 
 namespace tbus {
 namespace cuda {
@@ -61,6 +63,7 @@ bool DescribeProgram(const std::string& transform, size_t len,
                      ProgramDesc* desc, std::string* why) {
   ProgramDesc d;
   d.len = len;
+  d.out_len = len;
   if (transform == "echo" || transform == "xor255" || transform == "incr") {
     d.kernel = kU8Transform;
     d.op = transform == "echo" ? 0 : transform == "xor255" ? 1 : 2;
@@ -93,9 +96,19 @@ bool DescribeProgram(const std::string& transform, size_t len,
 
 // ---- the CPU backend: the programs as plain loops ----
 
+// in and out stand for the device's buffers; stage_in and stage_out are
+// the host staging buffers. Put only records where a segment comes from:
+// the "device" reads it when the program runs, as a DMA engine would, so
+// a donated range must stay mapped (pinned) until then.
 struct CpuPlan {
   ProgramDesc desc;
-  std::vector<char> in, out;
+  std::vector<char> in, out, stage_in, stage_out;
+  struct Segment {
+    size_t off;
+    const char* src;
+    size_t len;
+  };
+  std::vector<Segment> pending;
 };
 
 void cpu_u8(CpuPlan& p) {
@@ -170,6 +183,24 @@ void cpu_dotbench(CpuPlan& p) {
   memcpy(p.out.data(), &out, 4);
 }
 
+// K7's loop: row i of the n x bucket output is builtin(input row, i),
+// the input row being the one input (broadcast) or row i (scatter).
+void cpu_fanout(CpuPlan& p) {
+  const ProgramDesc& d = p.desc;
+  const uint8_t* in = reinterpret_cast<const uint8_t*>(p.in.data());
+  uint8_t* out = reinterpret_cast<uint8_t*>(p.out.data());
+  for (size_t i = 0; i < d.n; ++i) {
+    const uint8_t* src = d.scatter ? in + i * d.bucket : in;
+    uint8_t* dst = out + i * d.bucket;
+    const uint8_t add = uint8_t(i & 0xFF);
+    for (size_t j = 0; j < d.bucket; ++j) {
+      dst[j] = d.op == 1 ? uint8_t(src[j] ^ 0xFF)
+               : d.op == 2 ? uint8_t(src[j] + add)
+                           : src[j];
+    }
+  }
+}
+
 class CpuBackend final : public DeviceBackend {
  public:
   const char* platform() const override { return "cpu"; }
@@ -178,27 +209,54 @@ class CpuBackend final : public DeviceBackend {
     auto* p = new CpuPlan;
     p->desc = desc;
     p->in.resize(desc.len);
-    p->out.resize(desc.len);
+    p->stage_in.resize(desc.len);
+    p->out.resize(desc.out_len);
+    p->stage_out.resize(desc.out_len);
     return p;
   }
   char* Staging(void* plan, bool output) override {
     auto* p = static_cast<CpuPlan*>(plan);
-    return output ? p->out.data() : p->in.data();
+    return output ? p->stage_out.data() : p->stage_in.data();
   }
-  int Run(void* plan, std::string*) override {
+  int Put(void* plan, size_t off, const char* src, size_t len,
+          std::string*) override {
+    static_cast<CpuPlan*>(plan)->pending.push_back({off, src, len});
+    return 0;
+  }
+  int Exec(void* plan, bool, std::string*) override {
     // Per-execution latency for lifetime tests (deadline abandonment,
-    // the queue bound), as TBUS_PJRT_FAKE_DELAY_US is for the fake.
+    // the queue bound, a peer dying mid-execution), as
+    // TBUS_PJRT_FAKE_DELAY_US is for the fake. The inputs are read after
+    // it, as a device's DMA would read them.
     const char* delay = getenv("TBUS_TORCH_DEVICE_DELAY_US");
     if (delay != nullptr && atoll(delay) > 0) usleep(useconds_t(atoll(delay)));
     auto* p = static_cast<CpuPlan*>(plan);
+    for (const CpuPlan::Segment& s : p->pending) {
+      memcpy(p->in.data() + s.off, s.src, s.len);
+    }
+    p->pending.clear();
     if (p->desc.kernel == kDot128) {
       cpu_dot128(*p);
     } else if (p->desc.kernel == kDotbench) {
       cpu_dotbench(*p);
+    } else if (p->desc.kernel == kFanout) {
+      cpu_fanout(*p);
     } else {
       cpu_u8(*p);
     }
     return 0;
+  }
+  int Get(void* plan, size_t off, size_t len, char* dst,
+          std::string*) override {
+    memcpy(dst, static_cast<CpuPlan*>(plan)->out.data() + off, len);
+    return 0;
+  }
+  int Sync(void*, std::string*) override { return 0; }
+  // The DMA table is this device's view of host memory, as it is the
+  // reference's fake device's: a range the table pinned is reachable.
+  bool Covers(const void*, size_t, bool) const override { return true; }
+  HostRegisterStats host_register_stats() const override {
+    return HostRegisterStats();
   }
   long long Launches(int) const override { return 0; }
   void ResetLaunches() override {}
@@ -230,7 +288,14 @@ class CudaBackend final : public DeviceBackend {
     b->plan_ = reinterpret_cast<PlanFn>(sym("tbus_cuda_backend_plan"));
     b->staging_ =
         reinterpret_cast<StagingFn>(sym("tbus_cuda_backend_staging"));
-    b->run_ = reinterpret_cast<RunFn>(sym("tbus_cuda_backend_run"));
+    b->put_ = reinterpret_cast<CopyInFn>(sym("tbus_cuda_backend_put"));
+    b->exec_ = reinterpret_cast<ExecFn>(sym("tbus_cuda_backend_exec"));
+    b->get_ = reinterpret_cast<CopyOutFn>(sym("tbus_cuda_backend_get"));
+    b->sync_ = reinterpret_cast<SyncFn>(sym("tbus_cuda_backend_sync"));
+    b->register_ = reinterpret_cast<RegisterFn>(
+        sym("tbus_cuda_backend_host_register"));
+    b->unregister_ = reinterpret_cast<UnregisterFn>(
+        sym("tbus_cuda_backend_host_unregister"));
     b->launches_ =
         reinterpret_cast<LaunchesFn>(sym("tbus_cuda_backend_launches"));
     b->reset_ =
@@ -252,52 +317,158 @@ class CudaBackend final : public DeviceBackend {
   std::string device_name() const override { return device_; }
   void* NewPlan(const ProgramDesc& d, std::string* why) override {
     char err[256] = {0};
-    void* p = plan_(d.kernel, d.op, (long long)d.len, (long long)d.n,
-                    (long long)d.t, err, sizeof(err));
+    void* p = plan_(d.kernel, d.op, (long long)d.len, (long long)d.out_len,
+                    (long long)d.n, (long long)d.t, (long long)d.bucket,
+                    d.scatter ? 1 : 0, err, sizeof(err));
     if (p == nullptr) *why = err;
     return p;
   }
   char* Staging(void* plan, bool output) override {
     return staging_(plan, output ? 1 : 0);
   }
-  int Run(void* plan, std::string* why) override {
+  int Put(void* plan, size_t off, const char* src, size_t len,
+          std::string* why) override {
     char err[256] = {0};
-    const int rc = run_(plan, err, sizeof(err));
+    const int rc = put_(plan, (long long)off, src, (long long)len, err,
+                        sizeof(err));
     if (rc != 0) *why = err;
     return rc;
+  }
+  int Exec(void* plan, bool wait, std::string* why) override {
+    char err[256] = {0};
+    const int rc = exec_(plan, wait ? 1 : 0, err, sizeof(err));
+    if (rc != 0) *why = err;
+    return rc;
+  }
+  int Get(void* plan, size_t off, size_t len, char* dst,
+          std::string* why) override {
+    char err[256] = {0};
+    const int rc = get_(plan, (long long)off, (long long)len, dst, err,
+                        sizeof(err));
+    if (rc != 0) *why = err;
+    return rc;
+  }
+  int Sync(void* plan, std::string* why) override {
+    char err[256] = {0};
+    const int rc = sync_(plan, err, sizeof(err));
+    if (rc != 0) *why = err;
+    return rc;
+  }
+  bool Covers(const void* p, size_t len, bool write) const override {
+    std::lock_guard<std::mutex> g(reg_mu_);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    auto it = registered_.upper_bound(a);
+    if (it == registered_.begin()) return false;
+    --it;
+    if (a < it->first || a + len > it->first + it->second.bytes) return false;
+    return !(write && it->second.read_only);
+  }
+  HostRegisterStats host_register_stats() const override {
+    std::lock_guard<std::mutex> g(reg_mu_);
+    HostRegisterStats st = reg_stats_;
+    st.ranges = (long long)registered_.size();
+    return st;
   }
   long long Launches(int kernel) const override { return launches_(kernel); }
   void ResetLaunches() override { reset_(); }
 
+  // The DMA table's backend (tpu::SetPjrtDmaBackend): page-locks the
+  // range for the card with cudaHostRegister, read-only where the range
+  // is a peer's read-only mapping and the card supports that. Returns
+  // the handle (the base), or nullptr: the range then stays unbound, the
+  // table still holds it, and Covers() says no, so every touch of it
+  // stages, counted. Runs under the table's lock (and, for a peer region,
+  // under the block pool's attach lock): registering a 16 MiB region
+  // takes milliseconds, paid once per region, never on the dispatch
+  // thread while it holds a job's guard.
+  void* Register(void* base, size_t bytes) {
+    char err[256] = {0};
+    int read_only = 0;
+    const int rc = register_(base, (long long)bytes, &read_only, err,
+                             sizeof(err));
+    std::lock_guard<std::mutex> g(reg_mu_);
+    if (rc != 0) {
+      ++reg_stats_.failures;
+      LOG(WARNING) << "cudaHostRegister of " << bytes
+                   << " bytes failed; the range stages: " << err;
+      return nullptr;
+    }
+    registered_[reinterpret_cast<uintptr_t>(base)] = {bytes, read_only != 0};
+    reg_stats_.bytes += (long long)bytes;
+    if (read_only != 0) ++reg_stats_.read_only;
+    return base;
+  }
+  void Unregister(void* handle) {
+    {
+      std::lock_guard<std::mutex> g(reg_mu_);
+      auto it = registered_.find(reinterpret_cast<uintptr_t>(handle));
+      if (it == registered_.end()) return;
+      reg_stats_.bytes -= (long long)it->second.bytes;
+      if (it->second.read_only) --reg_stats_.read_only;
+      registered_.erase(it);
+    }
+    unregister_(handle);
+  }
+
  private:
   using OpenFn = int (*)(char*, int);
   using PlanFn = void* (*)(int, int, long long, long long, long long,
-                           char*, int);
+                           long long, long long, int, char*, int);
   using StagingFn = char* (*)(void*, int);
-  using RunFn = int (*)(void*, char*, int);
+  using CopyInFn = int (*)(void*, long long, const char*, long long, char*,
+                           int);
+  using ExecFn = int (*)(void*, int, char*, int);
+  using CopyOutFn = int (*)(void*, long long, long long, char*, char*, int);
+  using SyncFn = int (*)(void*, char*, int);
+  using RegisterFn = int (*)(void*, long long, int*, char*, int);
+  using UnregisterFn = void (*)(void*);
   using LaunchesFn = long long (*)(int);
   using ResetFn = void (*)();
   OpenFn open_ = nullptr;
   PlanFn plan_ = nullptr;
   StagingFn staging_ = nullptr;
-  RunFn run_ = nullptr;
+  CopyInFn put_ = nullptr;
+  ExecFn exec_ = nullptr;
+  CopyOutFn get_ = nullptr;
+  SyncFn sync_ = nullptr;
+  RegisterFn register_ = nullptr;
+  UnregisterFn unregister_ = nullptr;
   LaunchesFn launches_ = nullptr;
   ResetFn reset_ = nullptr;
   std::string device_;
+
+  struct Range {
+    size_t bytes;
+    bool read_only;
+  };
+  mutable std::mutex reg_mu_;
+  std::map<uintptr_t, Range> registered_;
+  HostRegisterStats reg_stats_;
 };
+
+CudaBackend* g_cuda_backend = nullptr;  // set once by Init("cuda")
+
+void* cuda_dma_map(void* base, size_t bytes) {
+  return g_cuda_backend != nullptr ? g_cuda_backend->Register(base, bytes)
+                                   : nullptr;
+}
+
+void cuda_dma_unmap(void* handle) {
+  if (g_cuda_backend != nullptr) g_cuda_backend->Unregister(handle);
+}
 
 // ---- the runtime ----
 
 struct Program {
   ProgramDesc desc;
   void* plan = nullptr;
-  // Keyed (serving step) programs reply with their whole output;
+  // Keyed (serving step, fan-out) programs reply with their whole output;
   // (transform, length) programs with as many bytes as the input had.
   bool whole_output = false;
 };
 
-// Caller-aliased output (RunProgramInto): once `abandoned` is set under
-// mu, the job never touches the caller's block.
+// Caller-aliased output (RunProgramInto, RunProgramRows): once
+// `abandoned` is set under mu, the job never touches the caller's rows.
 struct AliasGuard {
   std::mutex mu;
   bool abandoned = false;
@@ -309,8 +480,13 @@ struct Job {
   int handle = -1;
   std::string transform;
   size_t plen = 0;
-  IOBuf input;
-  char* out_block = nullptr;
+  // One input (stride 0), or input row i at i * stride.
+  std::vector<IOBuf> inputs;
+  size_t stride = 0;
+  // The caller's output rows; none: a fresh pool block for the reply.
+  // row_bytes 0: rows[0] takes the whole output and holds out_cap bytes.
+  std::vector<char*> rows;
+  size_t row_bytes = 0;
   size_t out_cap = 0;
   std::shared_ptr<AliasGuard> guard;
   CudaRuntime::Callback cb;
@@ -350,39 +526,156 @@ int add_program(Runtime* rt, const ProgramDesc& desc, bool whole_output,
   return int(rt->programs.size()) - 1;
 }
 
+// The execution's DMA pins, released when it ends (after Sync).
+struct Pins {
+  std::vector<tpu::PjrtDmaPin> held;
+  ~Pins() {
+    for (const tpu::PjrtDmaPin& p : held) tpu::PjrtDmaUnpin(p);
+  }
+  // True when the table pinned [p, p+len) AND the backend can DMA it in
+  // place; the pin is then held to the end of the execution.
+  bool Take(Runtime* rt, const char* p, size_t len, bool write) {
+    tpu::PjrtDmaPin pin;
+    if (!tpu::PjrtDmaPinRange(p, len, &pin)) return false;
+    if (!rt->backend->Covers(p, len, write)) {
+      tpu::PjrtDmaUnpin(pin);
+      return false;
+    }
+    held.push_back(pin);
+    return true;
+  }
+};
+
+void free_pool_block(void* p) { tpu::pool_deallocate(p); }
+
 // One device round trip, on the dispatch thread.
 int execute_job(Runtime* rt, const Program& prog, const Job& job,
                 IOBuf* output, std::string* why) {
-  const size_t in_len = job.input.size();
+  DeviceBackend* be = rt->backend.get();
   const size_t plen = prog.desc.len;
-  if (in_len > plen) {
-    *why = "input of " + std::to_string(in_len) +
-           " bytes is longer than its program (" + std::to_string(plen) + ")";
+  const size_t olen = prog.desc.out_len;
+  const size_t stride = job.stride != 0 ? job.stride : plen;
+  if (job.inputs.empty() || job.inputs.size() * stride > plen) {
+    *why = "input rows do not fit the program";
     return EREQUEST;
   }
-  if (job.out_block != nullptr && job.out_cap < plen) {
-    *why = "output block too small";
-    return EREQUEST;
-  }
-  char* in = rt->backend->Staging(prog.plan, false);
-  job.input.copy_to(in, in_len);
-  if (plen > in_len) memset(in + in_len, 0, plen - in_len);
-  if (rt->backend->Run(prog.plan, why) != 0) return EINTERNAL;
-  const char* out = rt->backend->Staging(prog.plan, true);
-  const size_t expose = prog.whole_output ? plen : in_len;
-  if (job.guard != nullptr) {
-    std::lock_guard<std::mutex> g(job.guard->mu);
-    if (!job.guard->abandoned) {  // else the caller's block may be reused
-      memcpy(job.out_block, out, plen);
-      job.guard->produced = expose;
+  for (const IOBuf& in : job.inputs) {
+    if (in.size() > stride) {
+      *why = "input of " + std::to_string(in.size()) +
+             " bytes is longer than its program (" + std::to_string(stride) +
+             ")";
+      return EREQUEST;
     }
-  } else {
-    output->append(out, expose);
   }
+  std::vector<char*> rows = job.rows;
+  size_t row_bytes = job.row_bytes;
+  if (!rows.empty() && row_bytes == 0) {
+    if (job.out_cap < olen) {
+      *why = "output block too small";
+      return EREQUEST;
+    }
+    row_bytes = olen;
+  }
+  if (!rows.empty() && rows.size() * row_bytes != olen) {
+    *why = "output rows do not cover the program's output";
+    return EREQUEST;
+  }
+  // The reply's own block, from the pool (registered when the table is
+  // armed), taken before any guard is held: a pool that grows registers
+  // its new region here.
+  char* own = nullptr;
+  if (rows.empty()) {
+    own = static_cast<char*>(tpu::pool_allocate(olen > 0 ? olen : 1));
+    if (own == nullptr) {
+      *why = "no memory for the reply";
+      return EINTERNAL;
+    }
+    rows.push_back(own);
+    row_bytes = olen;
+  }
+  auto fail = [&](int rc) {
+    if (own != nullptr) tpu::pool_deallocate(own);
+    return rc;
+  };
+
+  Pins pins;
+  std::vector<bool> aliased(rows.size());
+  for (size_t r = 0; r < rows.size(); ++r) {
+    aliased[r] = pins.Take(rt, rows[r], row_bytes, true);
+    tpu::PjrtDmaNoteAlias(aliased[r]);
+  }
+  // Inputs: a row that is one block of a registered range and fills its
+  // stride is donated (read in place, pinned); anything else is copied
+  // into the plan's staging buffer, zero-padded, and counted.
+  char* stage_in = be->Staging(prog.plan, false);
+  for (size_t i = 0; i < job.inputs.size(); ++i) {
+    const IOBuf& in = job.inputs[i];
+    const size_t off = i * stride;
+    const size_t len = in.size();
+    bool donated = false;
+    int rc = 0;
+    if (len == stride && in.backing_block_num() == 1) {
+      const char* p = in.backing_block(0).data;
+      if (pins.Take(rt, p, len, false)) {
+        donated = true;
+        rc = be->Put(prog.plan, off, p, len, why);
+      }
+    }
+    tpu::PjrtDmaNoteDonation(donated);
+    if (!donated) {
+      in.copy_to(stage_in + off, len);
+      if (stride > len) memset(stage_in + off + len, 0, stride - len);
+      tpu::PjrtDmaNoteH2dCopy(len);
+      rc = be->Put(prog.plan, off, stage_in + off, stride, why);
+    }
+    if (rc != 0) return fail(EINTERNAL);
+  }
+  const size_t filled = job.inputs.size() * stride;
+  if (filled < plen) {
+    memset(stage_in + filled, 0, plen - filled);
+    if (be->Put(prog.plan, filled, stage_in + filled, plen - filled, why) !=
+        0) {
+      return fail(EINTERNAL);
+    }
+  }
+  // With a guard, the program has finished before the guard is taken, so
+  // a caller past its deadline waits at most for the copies out.
+  if (be->Exec(prog.plan, job.guard != nullptr, why) != 0) {
+    return fail(EINTERNAL);
+  }
+  const size_t expose = prog.whole_output ? olen : job.inputs[0].size();
+  char* stage_out = be->Staging(prog.plan, true);
+  {
+    // The copies into the caller's rows are issued and synchronised under
+    // the guard, after checking `abandoned`: a row is never written once
+    // its caller got ERPCTIMEDOUT.
+    std::unique_lock<std::mutex> gl;
+    if (job.guard != nullptr) {
+      gl = std::unique_lock<std::mutex>(job.guard->mu);
+    }
+    const bool abandoned = job.guard != nullptr && job.guard->abandoned;
+    for (size_t r = 0; r < rows.size(); ++r) {
+      char* dst = !abandoned && aliased[r] ? rows[r]
+                                           : stage_out + r * row_bytes;
+      if (be->Get(prog.plan, r * row_bytes, row_bytes, dst, why) != 0) {
+        return fail(EINTERNAL);
+      }
+    }
+    if (be->Sync(prog.plan, why) != 0) return fail(EINTERNAL);
+    if (!abandoned) {
+      for (size_t r = 0; r < rows.size(); ++r) {
+        if (aliased[r]) continue;
+        memcpy(rows[r], stage_out + r * row_bytes, row_bytes);
+        tpu::PjrtDmaNoteD2hCopy(row_bytes);
+      }
+      if (job.guard != nullptr) job.guard->produced = expose;
+    }
+  }
+  if (own != nullptr) output->append_user_data(own, expose, free_pool_block);
   std::lock_guard<std::mutex> g(rt->mu);
   ++rt->st.executions;
   rt->st.h2d_bytes += (long long)plen;
-  rt->st.d2h_bytes += (long long)plen;
+  rt->st.d2h_bytes += (long long)olen;
   return 0;
 }
 
@@ -421,6 +714,9 @@ void dispatch_main() {
       std::lock_guard<std::mutex> g(rt->mu);
       ++rt->st.errors;
     }
+    // The job's inputs (and any view of a peer's region among them) are
+    // released before the caller hears back.
+    job.inputs.clear();
     job.cb(rc, std::move(out), why);
   }
 }
@@ -452,6 +748,38 @@ void EnqueueJob(Runtime* rt, Job j) {
   rt->q_cv.notify_one();
 }
 
+// Enqueues a job whose output lands in the caller's rows and waits for
+// it: the guarded form behind RunProgramInto and RunProgramRows.
+int RunGuarded(Runtime* rt, Job j, size_t* produced, int64_t timeout_ms) {
+  auto guard = std::make_shared<AliasGuard>();
+  struct Sync {
+    fiber::CountdownEvent done{1};
+    std::atomic<int> rc{EINTERNAL};
+  };
+  auto s = std::make_shared<Sync>();
+  j.guard = guard;
+  j.cb = [s](int rc, IOBuf, const std::string&) {
+    s->rc.store(rc, std::memory_order_release);
+    s->done.signal();
+  };
+  EnqueueJob(rt, std::move(j));
+  const int64_t abstime_us =
+      timeout_ms > 0 ? monotonic_time_us() + timeout_ms * 1000 : -1;
+  if (s->done.wait(abstime_us) != 0) {
+    // Mark the job abandoned UNDER the guard: once this lands, the
+    // dispatch thread drops the late result and never writes the rows.
+    std::lock_guard<std::mutex> g(guard->mu);
+    guard->abandoned = true;
+    return ERPCTIMEDOUT;
+  }
+  const int rc = s->rc.load(std::memory_order_acquire);
+  if (rc == 0 && produced != nullptr) {
+    std::lock_guard<std::mutex> g(guard->mu);
+    *produced = guard->produced;
+  }
+  return rc;
+}
+
 }  // namespace
 
 int CudaRuntime::Init(const std::string& device, const char* backend_so,
@@ -465,9 +793,12 @@ int CudaRuntime::Init(const std::string& device, const char* backend_so,
   }
   auto rt = std::make_unique<Runtime>();
   rt->device = device;
+  CudaBackend* cuda = nullptr;
   if (device == "cuda") {
-    rt->backend = CudaBackend::Open(backend_so, why);
-    if (rt->backend == nullptr) return -1;
+    std::unique_ptr<CudaBackend> b = CudaBackend::Open(backend_so, why);
+    if (b == nullptr) return -1;
+    cuda = b.get();
+    rt->backend = std::move(b);
   } else if (device == "cpu") {
     rt->backend.reset(new CpuBackend);
   } else {
@@ -478,8 +809,15 @@ int CudaRuntime::Init(const std::string& device, const char* backend_so,
   rt->st.platform = rt->backend->platform();
   rt->st.device = rt->backend->device_name();
   g_rt = rt.release();
+  if (cuda != nullptr) {
+    // The DMA table's backend: ranges registered before now (the pool's
+    // first region, carved by tbus_init) are bound at once.
+    g_cuda_backend = cuda;
+    tpu::SetPjrtDmaBackend(&cuda_dma_map, &cuda_dma_unmap);
+  }
   LOG(INFO) << "cuda runtime: up on " << g_rt->st.platform << " ("
-            << g_rt->st.device << ")";
+            << g_rt->st.device << "), DMA registration "
+            << (tpu::PjrtDmaEnabled() ? "armed" : "off");
   return 0;
 }
 
@@ -531,6 +869,40 @@ int CudaRuntime::EnsureProgram(const std::string& key,
   return handle;
 }
 
+int CudaRuntime::EnsureFanoutProgram(const std::string& key, int builtin,
+                                     size_t n, size_t bucket, bool scatter,
+                                     bool* created, std::string* why) {
+  Runtime* rt = g_rt;
+  std::string local;
+  if (why == nullptr) why = &local;
+  if (created != nullptr) *created = false;
+  if (rt == nullptr) {
+    *why = "cuda runtime not initialized";
+    return -1;
+  }
+  if (builtin < 0 || builtin > 2 || n == 0 || bucket == 0) {
+    *why = "bad fan-out program";
+    return -1;
+  }
+  std::lock_guard<std::mutex> g(rt->mu);
+  auto it = rt->key_index.find(key);
+  if (it != rt->key_index.end()) return it->second;
+  ProgramDesc desc;
+  desc.kernel = kFanout;
+  desc.op = builtin;
+  desc.n = n;
+  desc.bucket = bucket;
+  desc.scatter = scatter;
+  desc.len = scatter ? n * bucket : bucket;
+  desc.out_len = n * bucket;
+  const int handle = add_program(rt, desc, true, why);
+  if (handle >= 0) {
+    rt->key_index[key] = handle;
+    if (created != nullptr) *created = true;
+  }
+  return handle;
+}
+
 int CudaRuntime::RunU8(int handle, const IOBuf& input, IOBuf* output,
                        int64_t timeout_ms) {
   Runtime* rt = g_rt;
@@ -544,7 +916,7 @@ int CudaRuntime::RunU8(int handle, const IOBuf& input, IOBuf* output,
   auto s = std::make_shared<Sync>();
   Job j;
   j.handle = handle;
-  j.input = input;
+  j.inputs.push_back(input);
   j.cb = [s](int rc, IOBuf out, const std::string&) {
     {
       std::lock_guard<std::mutex> g(s->mu);
@@ -571,38 +943,29 @@ int CudaRuntime::RunProgramInto(int handle, const IOBuf& input,
                                 size_t* out_len, int64_t timeout_ms) {
   Runtime* rt = g_rt;
   if (rt == nullptr || out_block == nullptr) return EINTERNAL;
-  auto guard = std::make_shared<AliasGuard>();
-  struct Sync {
-    fiber::CountdownEvent done{1};
-    std::atomic<int> rc{EINTERNAL};
-  };
-  auto s = std::make_shared<Sync>();
   Job j;
   j.handle = handle;
-  j.input = input;
-  j.out_block = static_cast<char*>(out_block);
+  j.inputs.push_back(input);
+  j.rows.push_back(static_cast<char*>(out_block));
   j.out_cap = out_cap;
-  j.guard = guard;
-  j.cb = [s](int rc, IOBuf, const std::string&) {
-    s->rc.store(rc, std::memory_order_release);
-    s->done.signal();
-  };
-  EnqueueJob(rt, std::move(j));
-  const int64_t abstime_us =
-      timeout_ms > 0 ? monotonic_time_us() + timeout_ms * 1000 : -1;
-  if (s->done.wait(abstime_us) != 0) {
-    // Mark the job abandoned UNDER the guard: once this lands, the
-    // dispatch thread drops the late result and never writes the block.
-    std::lock_guard<std::mutex> g(guard->mu);
-    guard->abandoned = true;
-    return ERPCTIMEDOUT;
+  return RunGuarded(rt, std::move(j), out_len, timeout_ms);
+}
+
+int CudaRuntime::RunProgramRows(int handle, const std::vector<IOBuf>& inputs,
+                                size_t stride, char* const* rows,
+                                size_t nrows, size_t row_bytes,
+                                int64_t timeout_ms) {
+  Runtime* rt = g_rt;
+  if (rt == nullptr || rows == nullptr || nrows == 0 || row_bytes == 0) {
+    return EINTERNAL;
   }
-  const int rc = s->rc.load(std::memory_order_acquire);
-  if (rc == 0 && out_len != nullptr) {
-    std::lock_guard<std::mutex> g(guard->mu);
-    *out_len = guard->produced;
-  }
-  return rc;
+  Job j;
+  j.handle = handle;
+  j.inputs = inputs;
+  j.stride = stride;
+  j.rows.assign(rows, rows + nrows);
+  j.row_bytes = row_bytes;
+  return RunGuarded(rt, std::move(j), nullptr, timeout_ms);
 }
 
 void CudaRuntime::SubmitU8Transform(const std::string& transform,
@@ -616,7 +979,7 @@ void CudaRuntime::SubmitU8Transform(const std::string& transform,
   j.handle = Job::kResolveOnDispatch;
   j.transform = transform;
   j.plen = plen;
-  j.input = std::move(input);
+  j.inputs.push_back(std::move(input));
   j.cb = std::move(cb);
   EnqueueJob(rt, std::move(j));
 }
@@ -628,6 +991,12 @@ CudaStats CudaRuntime::stats() const {
   CudaStats st = rt->st;
   for (int k = 0; k < kKernels; ++k) st.launches[k] = rt->backend->Launches(k);
   return st;
+}
+
+HostRegisterStats CudaRuntime::host_register_stats() const {
+  Runtime* rt = g_rt;
+  return rt != nullptr ? rt->backend->host_register_stats()
+                       : HostRegisterStats();
 }
 
 void CudaRuntime::ResetLaunches() {

@@ -17,7 +17,15 @@
 //    program's reply is cut to the input's length, a keyed program's is
 //    its whole output;
 //  - a bad dot128 length or dotbench name is refused with the reference's
-//    text (pjrt_runtime.cc:215, :265).
+//    text (pjrt_runtime.cc:215, :265);
+//  - DMA registration (cpp/tpu/pjrt_dma.h, the reference's table, armed
+//    with tbus_pjrt_enable_dma or TBUS_PJRT_DMA=1 before tbus_init): an
+//    input that is one block of a registered range and fills its row of
+//    the program is DONATED (the device reads it in place, pinned); an
+//    output row that lies in a registered range is ALIASED (the device
+//    writes it in place, pinned). Everything else crosses through the
+//    plan's staging buffers and is counted by the tbus_pjrt_{h2d,d2h}_
+//    copy_bytes tripwires (pjrt_runtime.cc:420-480).
 //
 // Device work sits behind a small backend interface. Init("cuda") loads
 // the CUDA backend (cuda_backend.cu, built with nvcc) and fails where
@@ -25,12 +33,17 @@
 // part the reference's TBUS_PJRT_FAKE device plays (:780). Nothing falls
 // back from one to the other. Host <-> device staging goes through
 // buffers the backend owns per program (pinned, cudaHostAlloc, on CUDA).
+// On CUDA the runtime installs cudaHostRegister / cudaHostUnregister as
+// the DMA table's backend (tpu::SetPjrtDmaBackend); the CPU backend, like
+// the reference's fake device, takes the table itself as its view of
+// host memory.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 #include <functional>
 #include <string>
+#include <vector>
 
 #include "base/iobuf.h"
 
@@ -40,8 +53,15 @@ class Server;  // rpc/server.h
 
 namespace cuda {
 
-// The three kernels of device_programs.cu, as counted in stats().
-enum Kernel { kU8Transform = 0, kDot128 = 1, kDotbench = 2, kKernels = 3 };
+// The kernels of device_programs.cu, as counted in stats(): K4-K6 and
+// K7, the fused fan-out.
+enum Kernel {
+  kU8Transform = 0,
+  kDot128 = 1,
+  kDotbench = 2,
+  kFanout = 3,
+  kKernels = 4
+};
 
 struct CudaStats {
   bool available = false;
@@ -53,30 +73,56 @@ struct CudaStats {
   long long d2h_bytes = 0;
   long errors = 0;
   long overcrowded = 0;  // jobs refused at the queue bound
-  long long launches[kKernels] = {0, 0, 0};  // by the CUDA backend
+  long long launches[kKernels] = {0, 0, 0, 0};  // by the CUDA backend
 };
 
-// What a program computes; one per (transform, length). Every program
-// maps len bytes to len bytes.
+// The CUDA backend's own record of the ranges cudaHostRegister accepted
+// (the DMA table keeps an entry even where the backend refused one).
+struct HostRegisterStats {
+  long long ranges = 0;          // live registered ranges
+  long long bytes = 0;
+  long long read_only = 0;       // of which registered read-only
+  long long failures = 0;        // ranges left unbound (staged, counted)
+};
+
+// What a program computes. K4-K6 map len bytes to len bytes; the fused
+// fan-out (K7) maps u8[bucket] (broadcast) or u8[n * bucket] (scatter) to
+// u8[n * bucket], row i = builtin(input row, i).
 struct ProgramDesc {
   int kernel = kU8Transform;
-  int op = 0;      // u8 transform: 0 echo, 1 xor255, 2 incr
-  size_t len = 0;  // bytes in and out
-  unsigned long n = 0, t = 0;  // dotbench<N>x<T>
+  int op = 0;      // u8 transform: 0 echo, 1 xor255, 2 incr;
+                   // fan-out: 0 echo, 1 xor255, 2 add_peer_index
+  size_t len = 0;  // bytes in
+  size_t out_len = 0;          // bytes out
+  unsigned long n = 0, t = 0;  // dotbench<N>x<T>; fan-out: n peers
+  size_t bucket = 0;           // fan-out row bytes
+  bool scatter = false;        // fan-out: one input row per peer
 };
 
 // The device behind the runtime. Plans are made once per program and
-// live as long as the process; Run moves the plan's input staging buffer
-// through the program into its output staging buffer and returns 0, or a
-// nonzero code with *why set.
+// live as long as the process. One execution is Put (each input segment,
+// host -> device), Exec (the program), Get (each output segment, device
+// -> host) and Sync; a host pointer handed to Put or Get must stay valid
+// until Sync returns. Each returns 0, or a nonzero code with *why set.
 class DeviceBackend {
  public:
   virtual ~DeviceBackend() = default;
   virtual const char* platform() const = 0;
   virtual std::string device_name() const = 0;
   virtual void* NewPlan(const ProgramDesc& desc, std::string* why) = 0;
+  // The plan's host staging buffers (len and out_len bytes).
   virtual char* Staging(void* plan, bool output) = 0;
-  virtual int Run(void* plan, std::string* why) = 0;
+  virtual int Put(void* plan, size_t off, const char* src, size_t len,
+                  std::string* why) = 0;
+  // wait: return only once the program has finished on the device.
+  virtual int Exec(void* plan, bool wait, std::string* why) = 0;
+  virtual int Get(void* plan, size_t off, size_t len, char* dst,
+                  std::string* why) = 0;
+  virtual int Sync(void* plan, std::string* why) = 0;
+  // Whether the device may DMA [p, p+len) in place (write: as an output)
+  // once the DMA table pinned it.
+  virtual bool Covers(const void* p, size_t len, bool write) const = 0;
+  virtual HostRegisterStats host_register_stats() const = 0;
   virtual long long Launches(int kernel) const = 0;
   virtual void ResetLaunches() = 0;
 };
@@ -105,10 +151,21 @@ class CudaRuntime {
   int EnsureProgram(const std::string& key, const std::string& transform,
                     size_t n, std::string* why = nullptr);
 
+  // Prepares (cached by `key`) K7, the fused fan-out over n peers of
+  // bucket-byte rows (builtin 0 echo, 1 xor255, 2 add_peer_index): the
+  // counterpart of native_fanout.cc:166 fanout_mlir. Its reply is its
+  // whole output, n * bucket bytes. *created (when given) says whether
+  // this call made the program.
+  int EnsureFanoutProgram(const std::string& key, int builtin, size_t n,
+                          size_t bucket, bool scatter,
+                          bool* created = nullptr,
+                          std::string* why = nullptr);
+
   // Queue H2D -> kernel -> D2H and wait up to timeout_ms (<= 0: no
-  // deadline). Appends the reply to *output. Returns 0, ERPCTIMEDOUT past
-  // the deadline (the job is abandoned, its late result dropped), or
-  // another rpc error code.
+  // deadline). Appends the reply to *output: a fresh pool block, exposed
+  // zero-copy (aliased when the block is registered). Returns 0,
+  // ERPCTIMEDOUT past the deadline (the job is abandoned, its late result
+  // dropped), or another rpc error code.
   int RunU8(int handle, const IOBuf& input, IOBuf* output,
             int64_t timeout_ms = 120000);
 
@@ -120,6 +177,15 @@ class CudaRuntime {
                      size_t out_cap, size_t* out_len,
                      int64_t timeout_ms = 120000);
 
+  // The fan-out form: input row i (inputs[i], at most `stride` bytes,
+  // zero-padded) lands at i * stride of the program's input (stride 0:
+  // inputs[0] is the whole input), and output row r (row_bytes each) is
+  // written into rows[r]. Each row is donated or aliased on its own. The
+  // abandon rule is RunProgramInto's.
+  int RunProgramRows(int handle, const std::vector<IOBuf>& inputs,
+                     size_t stride, char* const* rows, size_t nrows,
+                     size_t row_bytes, int64_t timeout_ms = 120000);
+
   // Async form for server handlers: resolves (transform, plen) to a
   // program ON the dispatch thread, then runs it; cb runs there with the
   // rc, the reply and, on failure, the reason.
@@ -129,6 +195,7 @@ class CudaRuntime {
                          IOBuf input, Callback cb);
 
   CudaStats stats() const;
+  HostRegisterStats host_register_stats() const;
   void ResetLaunches();
 };
 

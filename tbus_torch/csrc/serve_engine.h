@@ -1,11 +1,15 @@
-// The serving plane's CUDA step engine: the counterpart of
-// cpp/tpu/serve_engine.cc's PjrtStepEngine (:46-75).
+// The serving plane's step engines on the port's device runtime: the
+// counterparts of cpp/tpu/serve_engine.cc's PjrtStepEngine (:46-75) and
+// FanoutStepEngine (:74-135).
 #pragma once
 
 #include <atomic>
+#include <cstdint>
 #include <memory>
 #include <string>
+#include <vector>
 
+#include "base/endpoint.h"
 #include "rpc/serve_batch.h"
 
 namespace tbus {
@@ -39,6 +43,27 @@ class CudaStepEngine final : public serve::StepEngine {
 // mount fails instead.
 std::shared_ptr<CudaStepEngine> NewCudaStepEngine(
     const std::string& transform);
+
+// Tensor-parallel serving: each fused step u8[bucket_rows * token_bytes]
+// is cut into peers.size() contiguous shards and run as ONE ScatterGather
+// through the installed collective fan-out backend (the port's K7 engine,
+// cuda_fanout.h), peer i computing shard i. builtin is "echo" or
+// "xor255"; the engine registers the client half of (service, method)
+// under impl_id, and the peers advertise the same id. A step that cannot
+// lower, or whose lowered op fails, is repaired on this card by the
+// single-card step engine (K4), counted in fallback_steps; the reference
+// repairs on the host. nullptr for another builtin, no peers, or no
+// runtime.
+std::shared_ptr<serve::StepEngine> NewFanoutStepEngine(
+    const std::string& builtin, const std::string& impl_id,
+    std::vector<EndPoint> peers, const std::string& service,
+    const std::string& method, int64_t timeout_ms);
+
+struct FanoutStepStats {
+  long collective_steps = 0;  // steps that ran as one ScatterGather
+  long fallback_steps = 0;    // repaired by the single-card engine
+};
+FanoutStepStats fanout_step_stats();
 
 }  // namespace cuda
 }  // namespace tbus

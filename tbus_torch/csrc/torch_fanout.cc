@@ -21,7 +21,8 @@
 // - CanLower reads only C++ state (LocalDeviceImpl + AllPeersAdvertise),
 //   never the GIL;
 // - selection order native -> torch -> p2p: never displaces an installed
-//   native backend.
+//   backend (the reference's native engine, or the port's own C++ engine,
+//   cuda_fanout.cc, which in turn displaces this one).
 //
 // Into Python: the runtime passes a ctypes callback; ctypes takes the GIL
 // when the executor thread calls it. The callback reads the batch through
@@ -259,7 +260,8 @@ int tbus_torch_fanout_enable(tbus::torch_port::RunFn run) {
   if (run == nullptr) return -1;
   if (g_run.load(std::memory_order_acquire) != nullptr) return 0;
   g_run.store(run, std::memory_order_release);
-  if (!tbus::tpu::NativeFanoutInstalled()) {
+  if (!tbus::tpu::NativeFanoutInstalled() &&
+      tbus::get_collective_fanout() == nullptr) {
     tbus::set_collective_fanout(std::make_shared<TorchFanout>());
   }
   // Console observability (/vars, /metrics). Leaky: the detached executor

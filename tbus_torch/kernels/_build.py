@@ -2,7 +2,7 @@
 
 - the CUDA kernels, one ``nvcc`` per source: ``row_transform.cu``,
   ``gemm_bf16.cu`` (K1, K2), ``ring_fold.cu`` (K3) and
-  ``device_programs.cu`` (K4-K6), each into its own ``lib<name>.so`` with
+  ``device_programs.cu`` (K4-K7), each into its own ``lib<name>.so`` with
   a plain C interface, loaded with ctypes (seconds to build;
   :func:`build_kernels` starts them all together);
 - the device runtime's CUDA backend: ``nvcc`` -> ``libcuda_backend.so``
@@ -10,8 +10,8 @@
 - the two bridges to the C++ core, ``g++`` against its ``libtbus.so`` with
   the headers that core was built with (no CUDA): the fan-out bridge
   ``libtbus_torch_fanout.so`` and the device runtime with its mounts
-  ``libtbus_torch_device.so`` (``cuda_runtime.cc``, ``serve_engine.cc``,
-  ``device_bridge.cc``);
+  ``libtbus_torch_device.so`` (``cuda_runtime.cc``, ``cuda_fanout.cc``,
+  ``serve_engine.cc``, ``device_bridge.cc``);
 - the C++ core itself, through :func:`tbus_torch._native.build`, when it is
   missing (the protobuf-free flavour where protobuf's headers are absent).
 
@@ -165,14 +165,15 @@ def ring_fold_lib() -> ctypes.CDLL:
 
 
 def device_programs_lib() -> ctypes.CDLL:
-    """The device plane's programs, K4-K6 (csrc/device_programs.cu)."""
+    """The device plane's programs, K4-K7 (csrc/device_programs.cu)."""
     return _cuda_lib("device_programs", [
         ("tbus_u8_transform", [_VP, _VP, _LL, _I, _VP], _I),
         ("tbus_dot128", [_VP, _VP, _LL, _VP], _I),
         ("tbus_dotbench_padded", [_LL], _LL),
         ("tbus_dotbench_partial_bytes", [], _LL),
         ("tbus_dotbench",
-         [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _F, _VP], _I)])
+         [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _F, _VP], _I),
+        ("tbus_fanout", [_VP, _VP, _LL, _LL, _I, _I, _VP], _I)])
 
 
 def cuda_backend() -> str:
@@ -257,21 +258,26 @@ def _core_bridge(name: str, out_name: str, srcs: List[str],
 
 
 def device_bridge_lib() -> ctypes.CDLL:
-    """The device runtime and its server mounts (csrc/cuda_runtime.cc,
-    serve_engine.cc, device_bridge.cc), built with g++ against the core."""
+    """The device runtime, its collective fan-out engine and its server
+    mounts (csrc/cuda_runtime.cc, cuda_fanout.cc, serve_engine.cc,
+    device_bridge.cc), built with g++ against the core."""
     lib = _loaded.get("torch_device")
     if lib is not None:
         return lib
     srcs = [os.path.join(_CSRC, f) for f in (
-        "cuda_runtime.cc", "serve_engine.cc", "device_bridge.cc")]
+        "cuda_runtime.cc", "cuda_fanout.cc", "serve_engine.cc",
+        "device_bridge.cc")]
     hdrs = [os.path.join(_CSRC, f) for f in (
-        "cuda_runtime.h", "serve_engine.h")] + [
+        "cuda_runtime.h", "cuda_fanout.h", "serve_engine.h")] + [
         os.path.join(_REPO, "cpp", p) for p in (
-            "rpc/serve_batch.h", "rpc/server.h", "base/iobuf.h",
-            "fiber/sync.h")]
+            "rpc/serve_batch.h", "rpc/server.h", "rpc/stream.h",
+            "rpc/fanout_hooks.h", "base/iobuf.h", "fiber/sync.h",
+            "tpu/pjrt_dma.h", "tpu/block_pool.h", "tpu/device_registry.h",
+            "tpu/native_fanout.h")]
     path = _core_bridge("torch_device", "libtbus_torch_device.so", srcs, hdrs)
     vp, ll, i, cp = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_char_p)
+    pll, pd = ctypes.POINTER(ll), ctypes.POINTER(ctypes.c_double)
     return _load("torch_device", path, [
         ("tbus_torch_device_init", [cp, cp, cp, i], i),
         ("tbus_torch_device_available", [], i),
@@ -279,8 +285,35 @@ def device_bridge_lib() -> ctypes.CDLL:
         ("tbus_torch_device_reset_launches", [], None),
         ("tbus_torch_server_add_device_method", [vp, cp, cp, cp], i),
         ("tbus_torch_server_add_generate_method",
-         [vp, cp, cp, cp, ll, ll, i, ll], i),
+         [vp, cp, cp, cp, ll, ll, i, ll, cp], i),
         ("tbus_torch_serve_engines_json", [], vp),
         ("tbus_torch_device_burst", [cp, ll, i, ctypes.POINTER(i)], i),
-        ("tbus_torch_device_run_into",
-         [cp, cp, ll, vp, ll, ll, ctypes.POINTER(ll)], i)])
+        ("tbus_torch_block_pool_enabled", [], i),
+        ("tbus_torch_dma_stats_json", [], vp),
+        ("tbus_torch_dma_register_range", [vp, ll], i),
+        ("tbus_torch_dma_unregister", [vp], i),
+        ("tbus_torch_dma_is_registered", [vp, ll], i),
+        ("tbus_torch_dma_region_count", [], ll),
+        ("tbus_torch_dma_pin", [vp, ll], i),
+        ("tbus_torch_dma_unpin", [i], None),
+        ("tbus_torch_pool_alloc", [ll], vp),
+        ("tbus_torch_pool_free", [vp], None),
+        ("tbus_torch_device_run_mode",
+         [cp, vp, ll, i, i, vp, ll, ll, pll], i),
+        ("tbus_torch_device_run_fanout",
+         [i, ll, ll, i, cp, ll, vp, ll], i),
+        ("tbus_torch_device_submit_peer_view",
+         [cp, cp, cp, cp, vp, ll, pll], i),
+        ("tbus_torch_device_wait", [i, ll, vp, ll, pll], i),
+        ("tbus_torch_cuda_fanout_enable", [], i),
+        ("tbus_torch_cuda_fanout_installed", [], i),
+        ("tbus_torch_cuda_fanout_register", [cp, cp, cp, cp], i),
+        ("tbus_torch_cuda_fanout_register_echo", [cp, cp], i),
+        ("tbus_torch_cuda_fanout_lowered_calls", [], ctypes.c_long),
+        ("tbus_torch_cuda_fanout_reset_for_test", [], None),
+        ("tbus_torch_cuda_fanout_stats_json", [], vp),
+        ("tbus_torch_fanout_step_stats_json", [], vp),
+        ("tbus_torch_server_add_device_stream_sink", [vp, cp, cp, cp, i], i),
+        ("tbus_torch_stream_sink_stats_json", [], vp),
+        ("tbus_torch_bench_device_stream",
+         [cp, cp, cp, ll, ll, cp, pd, pd, pd, pll, cp], i)])

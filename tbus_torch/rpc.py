@@ -1,15 +1,20 @@
 """Pythonic wrappers over the native tbus core, for the PyTorch port.
 
-The port's own subset of tbus/rpc.py: servers, channels and the
-ParallelChannel whose all-tpu:// fan-outs lower onto the port's runtime
-once :func:`enable_torch_fanout` has installed the C++ bridge
-(tbus_torch/csrc/torch_fanout.cc); token streams, the serving bench and
-its stats; and the C++ device plane (tbus_torch/csrc/cuda_runtime.cc):
-:func:`device_init`, ``Server.add_device_method`` and
-``Server.add_generate_method``, whose device work runs on the runtime's
-own dispatch thread with no Python on the path. Server handlers
-registered from Python run inside fibers on the native worker fleet;
-ctypes re-acquires the GIL per callback.
+The port's own subset of tbus/rpc.py: servers, channels, the
+ParallelChannel and the PartitionChannel whose all-tpu:// fan-outs lower
+onto the card, either through the C++ engine :func:`enable_native_fanout`
+installs (tbus_torch/csrc/cuda_fanout.cc: one K7 execution per call, no
+Python on the path) or through the Python executor
+:func:`enable_torch_fanout` installs (tbus_torch/csrc/torch_fanout.cc);
+token streams, the serving bench and its stats; the C++ device plane
+(tbus_torch/csrc/cuda_runtime.cc): :func:`device_init`, DMA registration
+of the block pool (:func:`device_enable_dma`), ``Server.add_device_method``,
+``Server.add_generate_method`` (with ``peers``, tensor-parallel) and
+``Server.add_device_stream_sink`` with :func:`bench_device_stream`, whose
+device work runs on the runtime's own dispatch thread; and the core's
+flags, variables and fault sites. Server handlers registered from Python
+run inside fibers on the native worker fleet; ctypes re-acquires the GIL
+per callback.
 """
 
 from __future__ import annotations
@@ -79,8 +84,8 @@ def device_available() -> bool:
 
 def device_stats() -> dict:
     """The device runtime's counters: platform, device, plans, executions,
-    h2d/d2h bytes, errors, overcrowded jobs, and each kernel's launches
-    (on the CUDA backend)."""
+    h2d/d2h bytes, errors, overcrowded jobs, each kernel's launches (on
+    the CUDA backend) and the DMA block (device_dma_stats)."""
     return json.loads(_take_str(
         _device_bridge().tbus_torch_device_stats_json()))
 
@@ -88,6 +93,164 @@ def device_stats() -> dict:
 def reset_device_launches() -> None:
     """Sets the runtime's per-kernel launch counts to 0."""
     _device_bridge().tbus_torch_device_reset_launches()
+
+
+def device_enable_dma() -> None:
+    """Arms DMA registration of the block pool's regions (the reference's
+    table, cpp/tpu/pjrt_dma.h): the device then reads donated request
+    blocks in place and writes outputs straight into registered pool
+    blocks; on the card the runtime binds each region with
+    cudaHostRegister. Call it BEFORE the first init(), Server or Channel
+    (or export TBUS_PJRT_DMA=1): it raises once the block pool is up,
+    since the regions carved before it would be missed."""
+    B = _device_bridge()
+    if B.tbus_torch_block_pool_enabled():
+        raise RuntimeError("device_enable_dma: the block pool is already up "
+                           "(arm DMA before the first init/Server/Channel, "
+                           "or export TBUS_PJRT_DMA=1)")
+    if _native.lib().tbus_pjrt_enable_dma() != 0:
+        raise RuntimeError("device_enable_dma failed")
+
+
+def device_dma_stats() -> dict:
+    """The DMA table's counters: registered regions, live pins, the
+    staging tripwires h2d_copy_bytes / d2h_copy_bytes (bytes that crossed
+    through a staging copy; a donation- and alias-clean run adds none),
+    donation and alias hits and misses, refused registrations, deferred
+    unregisters, and host_registered: the ranges the CUDA backend bound
+    with cudaHostRegister (read-only ones, and failures, which stage)."""
+    return json.loads(_take_str(_device_bridge().tbus_torch_dma_stats_json()))
+
+
+def pjrt_h2d_copy_bytes() -> int:
+    """The tbus_pjrt_h2d_copy_bytes tripwire (staged input bytes)."""
+    return int(device_dma_stats()["h2d_copy_bytes"])
+
+
+def pjrt_d2h_copy_bytes() -> int:
+    """The tbus_pjrt_d2h_copy_bytes tripwire (staged output bytes)."""
+    return int(device_dma_stats()["d2h_copy_bytes"])
+
+
+def bench_device_stream(addr: str, total_bytes: int = 1 << 30,
+                        chunk_bytes: int = 1 << 20,
+                        transform: str = "echo",
+                        service: str = "DeviceStream",
+                        method: str = "Sink") -> dict:
+    """Device-stream bench (device -> stream -> device): every chunk is
+    produced on the device through the runtime (one reusable pool block
+    donated as input, the output a fresh pool block, aliased) and written
+    to a device stream sink (Server.add_device_stream_sink), which feeds
+    it through its own device. Needs device_init first. Goodput counts
+    bytes the sink consumed; gaps are between chunk completions."""
+    B = _device_bridge()
+    goodput, p50, p99 = (ctypes.c_double(), ctypes.c_double(),
+                         ctypes.c_double())
+    chunks = ctypes.c_longlong()
+    err = ctypes.create_string_buffer(256)
+    rc = B.tbus_torch_bench_device_stream(
+        addr.encode(), service.encode(), method.encode(), total_bytes,
+        chunk_bytes, transform.encode(), ctypes.byref(goodput),
+        ctypes.byref(p50), ctypes.byref(p99), ctypes.byref(chunks), err)
+    if rc != 0:
+        raise RpcError(rc, "bench_device_stream failed: "
+                       + err.value.decode(errors="replace"))
+    return {"goodput_MBps": goodput.value, "gap_p50_us": p50.value,
+            "gap_p99_us": p99.value, "chunks": chunks.value}
+
+
+def stream_sink_stats() -> dict:
+    """Bytes and chunks the device stream sinks of this process ran
+    through the device, and chunks that failed (their stream closed)."""
+    return json.loads(_take_str(
+        _device_bridge().tbus_torch_stream_sink_stats_json()))
+
+
+# ---- the C++ collective fan-out engine (tbus_torch/csrc/cuda_fanout.cc) ----
+
+def enable_native_fanout() -> bool:
+    """Installs the port's C++ collective fan-out engine: an eligible
+    ParallelChannel/PartitionChannel call runs as ONE execution of K7 on
+    the device runtime (device_init first; without it calls go p2p), with
+    no Python on the path; TBUS_FANOUT_MESH=host takes the host engine
+    instead. Selection order: this engine -> torch -> p2p (it displaces
+    an installed torch backend). False where the reference's engine is
+    already installed in this process."""
+    return _device_bridge().tbus_torch_cuda_fanout_enable() == 0
+
+
+def native_fanout_lowered_calls() -> int:
+    """Calls the C++ engine has served (broadcast + scatter)."""
+    return int(_device_bridge().tbus_torch_cuda_fanout_lowered_calls())
+
+
+def register_native_device_method(service: str, method: str, builtin: str,
+                                  impl_id: str) -> bool:
+    """Client half of the lowering contract for the C++ engine: builtin
+    ("echo", "xor255", "add_peer_index") for the method under impl_id;
+    every peer must advertise the same id (advertise_device_method)."""
+    _native.lib()
+    return _device_bridge().tbus_torch_cuda_fanout_register(
+        service.encode(), method.encode(), builtin.encode(),
+        impl_id.encode()) == 0
+
+
+def register_native_device_echo(service: str, method: str) -> bool:
+    """Identity echo under "echo/v1", registered AND advertised."""
+    _native.lib()
+    return _device_bridge().tbus_torch_cuda_fanout_register_echo(
+        service.encode(), method.encode()) == 0
+
+
+def native_fanout_stats() -> dict:
+    """The C++ engine's counters: lowered and scatter calls, host_execs
+    (host engine) and device_execs (K7 executions), plan-cache hits and
+    misses, divergence checks and mismatches, quarantines, revivals,
+    p2p repairs, and the peers whose adverts this process holds."""
+    return json.loads(_take_str(
+        _device_bridge().tbus_torch_cuda_fanout_stats_json()))
+
+
+def fanout_step_stats() -> dict:
+    """Tensor-parallel serving: steps that ran as one ScatterGather
+    (collective_steps) and steps repaired on the single-card engine
+    (fallback_steps)."""
+    return json.loads(_take_str(
+        _device_bridge().tbus_torch_fanout_step_stats_json()))
+
+
+# ---- the core's flags, variables and fault sites ----
+
+def flag_set(name: str, value) -> None:
+    """Sets a runtime-reloadable flag (e.g. tbus_fanout_divergence_permille;
+    string flags take str values)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    text = value if isinstance(value, str) else str(int(value))
+    if L.tbus_flag_set(name.encode(), text.encode()) != 0:
+        raise ValueError(f"unknown flag or value out of range: {name!r}")
+
+
+def var_value(name: str) -> str:
+    """Current text of one exposed variable; empty when absent."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return _take_str(L.tbus_var_value(name.encode()))
+
+
+def fi_set(site: str, permille: int, budget: int = -1, arg: int = 0) -> None:
+    """Arms fault site `site` at permille/1000 (budget bounds the
+    injections, -1 unlimited); permille 0 disarms."""
+    L = _native.lib()
+    L.tbus_init(0)
+    if L.tbus_fi_set(site.encode(), permille, budget, arg) != 0:
+        raise ValueError(f"unknown fault site or bad permille: {site!r}")
+
+
+def fi_disable_all() -> None:
+    L = _native.lib()
+    L.tbus_init(0)
+    L.tbus_fi_disable_all()
 
 
 # ---- the torch collective fan-out backend ----
@@ -252,6 +415,51 @@ class ParallelChannel:
             pass
 
 
+class PartitionChannel:
+    """Sharded scatter-gather over a partitioned fleet ("N/M" tags in the
+    naming data). With slice_mapper=True partition i serves the i-th 1/N
+    slice of the request and the responses re-concatenate in index
+    order; when every partition resolves to one advertised tpu:// peer
+    the scatter lowers onto the collective backend (the C++ engine's
+    scatter form), else p2p."""
+
+    def __init__(self, num_partitions: int, naming_url: str,
+                 lb_name: str = "rr", fail_limit: int = 0,
+                 slice_mapper: bool = True) -> None:
+        self._L = _native.lib()
+        self._L.tbus_init(0)
+        self._h = self._L.tbus_partchan_new(
+            num_partitions, naming_url.encode(), lb_name.encode(),
+            fail_limit, 1 if slice_mapper else 0)
+        if not self._h:
+            raise RuntimeError(f"partition channel init failed: {naming_url}")
+
+    @property
+    def collective_eligible(self) -> bool:
+        return bool(self._L.tbus_partchan_eligible(self._h))
+
+    def call(self, service: str, method: str, payload: bytes,
+             timeout_ms: int = 10000) -> bytes:
+        out = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        rc = self._L.tbus_partchan_call(
+            self._h, service.encode(), method.encode(), payload,
+            len(payload), timeout_ms, ctypes.byref(out),
+            ctypes.byref(out_len))
+        if rc != 0:
+            raise RpcError(rc, "partition call failed")
+        try:
+            return ctypes.string_at(out, out_len.value)
+        finally:
+            self._L.tbus_buf_free(ctypes.cast(out, ctypes.c_char_p))
+
+    def __del__(self):
+        try:
+            self._L.tbus_partchan_free(self._h)
+        except Exception:
+            pass
+
+
 class Server:
     """A tbus RPC server bound to a TCP port (0 = ephemeral)."""
 
@@ -307,22 +515,46 @@ class Server:
                             method: str = "Generate",
                             transform: str = "incr", max_batch: int = 64,
                             token_bytes: int = 4096, batched: bool = True,
-                            max_queue: int = 1024) -> None:
+                            max_queue: int = 1024, peers: str = "") -> None:
         """Mounts a continuous-batching generate method (cpp/rpc/
         serve_batch.h) whose every fused step runs through the device
         runtime's step engine: requests carry u32le ntokens + a prompt and
         an offered stream; tokens stream back per step (the transform
         applied to the prompt-seeded state each step). batched=False
-        mounts the per-request baseline. Raises when the step engine
-        cannot be made (runtime not up, unknown transform): it never
-        serves from the host engine instead."""
+        mounts the per-request baseline. peers (a comma list of
+        host:port) shards every step over that mesh partition through the
+        collective fan-out backend (tensor-parallel serving; transform
+        echo or xor255, anything else serves as echo): the peers advertise
+        (service + "Shard", method) under "serve/v1" and must have
+        completed a tpu:// handshake with this process; a step that cannot
+        lower is repaired on this card (fanout_step_stats). Raises when
+        the step engine cannot be made (runtime not up, unknown
+        transform): it never serves from the host engine instead."""
         rc = _device_bridge().tbus_torch_server_add_generate_method(
             self._h, service.encode(), method.encode(), transform.encode(),
-            max_batch, token_bytes, 1 if batched else 0, max_queue)
+            max_batch, token_bytes, 1 if batched else 0, max_queue,
+            peers.encode())
         if rc != 0:
             raise RuntimeError(
                 f"add_generate_method failed: {rc} (is the device runtime "
                 f"up, and is {transform!r} echo, xor255 or incr?)")
+
+    def add_device_stream_sink(self, service: str = "DeviceStream",
+                               method: str = "Sink",
+                               transform: str = "echo",
+                               echo: bool = False) -> None:
+        """Mounts a device stream sink: every chunk received on the
+        offered stream runs through the device runtime (transform echo,
+        xor255 or incr; the chunk's view in the sender's registered pool
+        region is donated, the output lands in an own pool block) and is
+        counted (stream_sink_stats), and streamed back with echo. The
+        server half of bench_device_stream. Without a runtime the stream
+        closes; there is no host path."""
+        rc = _device_bridge().tbus_torch_server_add_device_stream_sink(
+            self._h, service.encode(), method.encode(), transform.encode(),
+            1 if echo else 0)
+        if rc != 0:
+            raise RuntimeError(f"add_device_stream_sink failed: {rc}")
 
     def start(self, port: int = 0) -> int:
         rc = self._L.tbus_server_start(self._h, port)

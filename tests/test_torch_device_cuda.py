@@ -139,7 +139,9 @@ def test_cuda_runtime_mounts_serve_over_rpc():
                 assert st.read(timeout_ms=30000) == state.tobytes()
             assert st.read(timeout_ms=30000) is None
         launches = rpc.device_stats()["launches"]
-        assert min(launches.values()) > 0, launches
+        assert min(launches[k] for k in ("u8_transform", "dot128",
+                                         "dotbench")) > 0, launches
+        assert launches["fanout"] == 0, launches  # nothing fanned out here
         gen = [g for g in tt.serve_stats() if g["name"] == "GenCuda.Generate"]
         assert gen and gen[0]["engine"] == "cuda"
         assert gen[0]["engine_steps"] == gen[0]["steps"] > 0

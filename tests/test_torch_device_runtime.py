@@ -85,7 +85,8 @@ assert refusal("nope", b"x") == (1003, "unknown transform nope")
 assert len(ch.call("Dev", "dot128", b"\0" * 1000)) == 1000
 st = rpc.device_stats()
 assert st["platform"] == "cpu" and st["errors"] == 9, st
-assert st["launches"] == {"u8_transform": 0, "dot128": 0, "dotbench": 0}
+assert st["launches"] == {"u8_transform": 0, "dot128": 0, "dotbench": 0,
+                         "fanout": 0}
 s.stop()
 """
 
@@ -116,14 +117,14 @@ os.environ["TBUS_TORCH_DEVICE_DELAY_US"] = "300000"
 data = bytes(range(256)) * 16
 out = ctypes.create_string_buffer(b"\xaa" * len(data), len(data))
 got = ctypes.c_longlong(-1)
-rc = B.tbus_torch_device_run_into(b"xor255", data, len(data), out, len(data),
-                                  30, ctypes.byref(got))
+rc = B.tbus_torch_device_run_mode(b"xor255", data, len(data), 1, 1, out,
+                                  len(data), 30, ctypes.byref(got))
 assert rc == 1008, rc  # ERPCTIMEDOUT
 time.sleep(0.6)  # the abandoned job has finished by now
 assert out.raw == b"\xaa" * len(data)
 os.environ["TBUS_TORCH_DEVICE_DELAY_US"] = "0"
-rc = B.tbus_torch_device_run_into(b"xor255", data, len(data), out, len(data),
-                                  5000, ctypes.byref(got))
+rc = B.tbus_torch_device_run_mode(b"xor255", data, len(data), 1, 1, out,
+                                  len(data), 5000, ctypes.byref(got))
 assert rc == 0 and got.value == len(data)
 assert out.raw == bytes(b ^ 0xFF for b in data)
 """

@@ -63,7 +63,8 @@ _EXPECTED = [
     "tests/test_torch_gemm_cuda.py", "tests/test_torch_ring_fold_cuda.py",
     "tests/test_torch_entry_cuda.py", "tbus_torch/kernels/device_programs.py",
     "tbus_torch/rpc.py", "tbus_torch/_native.py",
-    "tests/test_torch_device_cuda.py",
+    "tests/test_torch_device_cuda.py", "tbus_torch/kernels/fanout.py",
+    "tests/test_torch_fanout_cuda.py",
 ]
 
 
