@@ -34,47 +34,52 @@ serving over 4 shard servers, and the device stream sink with its bench.
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
-bridges with g++; (iii) row_transform against its plain version at path
-1's shapes, timed beside its bound; (iv) the runtime's device kind
-against its host kind; (v) path 1 through the runtime entry points the
-bridge calls, with its counts reset before and read after, checked
-against the bytes the p2p servers' handlers return, with per-call
-latency; (vi) a profile of lowered calls; (vii) K1 and K2 against their
-plain versions at the entry's shape and at hidden 4096 x rows 4096,
-timed beside their bounds and cuBLAS (torch.mm bf16 -> f32, torch.matmul
-f32); (viii) K3 against its plain version over 4 carried folds at 8192 x
-8192 x 128 (32K context on a 4-position ring), in f32 and bf16, timed
-beside its bound and scaled_dot_product_attention, and at head dims 256
-and 200 (more than one of the kernel's head-dim chunks); (ix) path 2
-through entry(device="cuda") at the entry's shapes and at hidden 4096,
-and make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
+bridges with g++; the shared GEMM's registers and spills from ptxas, and
+cuobjdump's SASS of K1's and K6's GEMM: HGMMA (wgmma), no HMMA; (iii)
+row_transform against its plain version at path 1's shapes, timed beside
+its bound; (iv) the runtime's device kind against its host kind; (v)
+path 1 through the runtime entry points the bridge calls, with its
+counts reset before and read after, checked against the bytes the p2p
+servers' handlers return, with per-call latency; (vi) a profile of
+lowered calls; (vii) K1 and K2 against their plain versions at the
+entry's shape, at hidden 4096 x rows 4096, at the shared TMA + wgmma
+GEMM's tile edges and at long K, timed beside their bounds and cuBLAS
+(torch.mm bf16 -> f32, with and without its casts; torch.matmul f32), K1
+in parts (pack and GEMM, from the profiler); (viii) K3 against its plain
+version over 4 carried folds at 8192 x 8192 x 128 (32K context on a
+4-position ring), in f32 and bf16, timed beside its bound and
+scaled_dot_product_attention, and at head dims 256 and 200 (more than
+one of the kernel's head-dim chunks); (ix) path 2 through
+entry(device="cuda") at the entry's shapes and at hidden 4096, and
+make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
 before and read after, held against the same step on the CPU's plain
 path and against plain full attention, with the step's wall time and
 device-busy share; (x) dryrun_multichip(1) in its own process; (xi) K4,
 K5 and K6 against their plain versions at path 3's shapes (the 256 KiB
 serving step, 4 KiB and 1 MiB payloads, dot128 at k = 2048,
-dotbench4096x32), timed beside their bounds and the library calls;
-(xii) path 3a: device methods (echo, xor255, incr at 4 KiB and 1 MiB,
-dot128 at 1 MiB, dotbench4096x32 on a 4-byte seed), every reply held to
-the plain version on the card, with the runtime's launch counts reset
-before and read after, per-call p50/p99 and the device-busy share of a
-profiled call; (xiii) path 3b: generate (incr, xor255) at max_batch 64,
-token_bytes 4096: 64 concurrent streams of 16 tokens checked byte for
-byte, then bench_serve for 2 s, with serve_stats naming the CUDA engine;
-(xiv) path 1's RPC leg: a ParallelChannel to 8 tpu:// servers, p2p and
-then lowered through the torch fan-out bridge, byte-equal, p50/p99 at
-4 KiB and 1 MiB; (xv) K7 against its plain version (broadcast and
-scatter, the three builtins, n in 1, 8, 64, buckets 128 B to 1 MiB, a
-ragged one and an unaligned input), timed at path 4's shapes beside its
-bound and the library call (x.expand(n, -1) ^ 255, .clone()); (xvi) path
-4 with the runtime's launch counts reset before and read after: (b) the
-8-way fan-out over 8 tpu:// servers through enable_native_fanout in this
-process (which ran the torch leg), echo/xor255/add_peer_index at 4 KiB
-and 1 MiB, byte-equal to p2p (compared inside at divergence permille
-1000, then returned at 0), p50/p99 beside p2p; (c) PartitionChannel
-scatter, 8 partitions x 1 MiB; (d) tensor-parallel generate over 4 shard
-servers, 64 streams x 16 tokens of 4 KiB byte-exact, then bench_serve,
-with fallback_steps 0; (e) bench_device_stream, 256 MiB in 1 MiB chunks,
+dotbench4096x32 and chains at the GEMM's tile edges), timed beside their
+bounds and the library calls; (xii) path 3a: device methods (echo,
+xor255, incr at 4 KiB and 1 MiB, dot128 at 1 MiB, dotbench4096x32 on a
+4-byte seed), every reply held to the plain version on the card, with
+the runtime's launch counts reset before and read after, per-call
+p50/p99 and the device-busy share of a profiled call; (xiii) path 3b:
+generate (incr, xor255) at max_batch 64, token_bytes 4096: 64 concurrent
+streams of 16 tokens checked byte for byte, then bench_serve for 2 s,
+with serve_stats naming the CUDA engine; (xiv) path 1's RPC leg: a
+ParallelChannel to 8 tpu:// servers, p2p and then lowered through the
+torch fan-out bridge, byte-equal, p50/p99 at 4 KiB and 1 MiB; (xv) K7
+against its plain version (broadcast and scatter, the three builtins, n
+in 1, 8, 64, buckets 128 B to 1 MiB, a ragged one and an unaligned
+input), timed at path 4's shapes beside its bound and the library call
+(x.expand(n, -1) ^ 255, .clone()); (xvi) path 4 with the runtime's
+launch counts reset before and read after: (b) the 8-way fan-out over 8
+tpu:// servers through enable_native_fanout in this process (which ran
+the torch leg), echo/xor255/add_peer_index at 4 KiB and 1 MiB,
+byte-equal to p2p (compared inside at divergence permille 1000, then
+returned at 0), p50/p99 beside p2p; (c) PartitionChannel scatter, 8
+partitions x 1 MiB; (d) tensor-parallel generate over 4 shard servers,
+64 streams x 16 tokens of 4 KiB byte-exact, then bench_serve, with
+fallback_steps 0; (e) bench_device_stream, 256 MiB in 1 MiB chunks,
 xor255, echo on, every chunk counted by the sink; each with the DMA
 tripwires and donation/alias hits; (xvii) path 4 again in a child with
 DMA registration off. Any failure exits nonzero; the last line is the
@@ -192,10 +197,37 @@ def phase_build():
     for name, secs in sorted(_build.build_seconds.items()):
         say(f"built {name}: {secs:.1f} s")
         for line in _build.build_logs.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "arning" in line:
                 say(f"  {name}: {line.strip()}")
     say(f"build phase wall: {time.monotonic() - t0:.1f} s")
+    _check_gemm_build(_build)
     return flavor
+
+
+def _check_gemm_build(_build):
+    """K1's and K6's GEMM is the TMA + wgmma mainloop: HGMMA and no HMMA
+    in its SASS, and no spills in ptxas's report of the build (kept beside
+    the library, so a cached build is checked too)."""
+    for lib in ("gemm_bf16", "device_programs"):
+        sass = _build.gemm_sass(lib)
+        usage = {fn: u for fn, u in _build.ptxas_usage(lib).items()
+                 if "gemm_sm90_kernel" in fn}
+        if not sass:
+            raise AssertionError(f"lib{lib}: no gemm_sm90_kernel in its SASS")
+        for fn, counts in sass.items():
+            u = usage.get(fn, {})
+            if "spill_stores" not in u:
+                raise AssertionError(f"lib{lib} {fn}: no spill count in "
+                                     f"ptxas's report of the build")
+            spills = u["spill_stores"] + u["spill_loads"]
+            say(f"lib{lib} {fn}: SASS HGMMA {counts['HGMMA']}, HMMA "
+                f"{counts['HMMA']}; ptxas {u.get('registers')} registers, "
+                f"{spills} spill bytes")
+            if counts["HGMMA"] == 0 or counts["HMMA"] != 0:
+                raise AssertionError(f"lib{lib} {fn} is not a wgmma GEMM: "
+                                     f"{counts}")
+            if spills:
+                raise AssertionError(f"lib{lib} {fn} spills {spills} bytes")
 
 
 def _kernel_rows(torch, rng, b, length, payload_n):
@@ -441,7 +473,11 @@ def phase_profile(torch, dev):
 
 # ---- path 2: the graft entry, its GEMM and fold kernels ----
 
-GEMM_SHAPES = [(4, 16, 16), (4096, 4096, 4096)]  # (M, K, N)
+GEMM_SHAPES = [(4, 16, 16), (4096, 4096, 4096)]  # (M, K, N), timed
+# Checked only: on and one past the shared GEMM's tile edges (blocks of
+# 128 rows paired into 256, 256 columns, 64 deep), and long K.
+GEMM_CHECKS = [(128, 64, 256), (129, 65, 257), (256, 4104, 384),
+               (64, 16384, 64)]
 FOLD = (8192, 8192, 128, 4)  # lq, lk, d, folds: one position of a 4-ring
 # Head dims over K3's 128-wide chunk: (lq, lk, d), two carried folds each.
 WIDE_FOLDS = [(2048, 2048, 256), (1000, 777, 200)]
@@ -479,14 +515,15 @@ def phase_gemm(torch, dev):
 
     rng = np.random.default_rng(SEED + 10)
     out = {}
-    for m, k, n in GEMM_SHAPES:
+    for m, k, n in GEMM_SHAPES + GEMM_CHECKS:
         x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
         w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
                              * np.float32(0.02))
         dy = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
         x, w, dy = x.cuda(), w.cuda(), dy.cuda()
-        y = gemm.matmul_bf16_f32(x, w)
+        y, xb, wtb = gemm.matmul_bf16_f32_packed(x, w)
         yp = gemm.matmul_bf16_f32_reference(x, w)
+        xbp, wtbp = gemm.pack_reference(x, w)
         g = gemm.dw_f32_bf16(x, dy)
         gp = gemm.dw_reference(x, dy)
         torch.cuda.synchronize()
@@ -497,11 +534,23 @@ def phase_gemm(torch, dev):
             exact = (x.bfloat16().double().T @ dy.double()).bfloat16()
         k2_exact = float((g.bfloat16() == exact).double().mean())
         p2_exact = float((gp.bfloat16() == exact).double().mean())
-        if not (k1_ok and k2_ok):
+        # K1's pack against its plain version: the same bf16 bits, the
+        # same padded shape.
+        pack_ok = torch.equal(xb, xbp) and torch.equal(wtb, wtbp)
+        if not (k1_ok and k2_ok and pack_ok):
             raise AssertionError(
                 f"GEMM kernels at (M,K,N)={(m, k, n)}: K1 err {k1_err} "
-                f"(ok {k1_ok}); K2 err {k2_err}, {k2_beyond} beyond 1 ulp, "
-                f"max {k2_ulps:.2f} ulp (ok {k2_ok})")
+                f"(ok {k1_ok}), pack equal to its plain version {pack_ok} "
+                f"(shapes {tuple(xb.shape)}, {tuple(wtb.shape)} against "
+                f"{tuple(xbp.shape)}, {tuple(wtbp.shape)}); K2 err "
+                f"{k2_err}, {k2_beyond} beyond 1 ulp, max {k2_ulps:.2f} ulp "
+                f"(ok {k2_ok})")
+        if (m, k, n) in GEMM_CHECKS:
+            say(f"K1, K2 (M,K,N)={(m, k, n)}: K1 max|k-p| {k1_err:.3g} <= "
+                f"1e-4*max|p|, pack bit-equal to its plain version; K2 "
+                f"max|k-p| {k2_err:.3g}, {k2_beyond} beyond "
+                f"1 bf16 ulp (max {k2_ulps:.2f} ulp)")
+            continue
         big = m * n * k > 1e9
         iters = 10 if big else 200
         flops = 2.0 * m * n * k
@@ -531,20 +580,40 @@ def phase_gemm(torch, dev):
                          "tflops": flops / ms / 1e9}
         rec["matmul_bf16_f32"]["max_abs_err"] = k1_err
         rec["dw_f32_bf16"]["max_abs_err"] = k2_err
-        # A second yardstick for K1: the full-f32 product of the unrounded
+        k1 = rec["matmul_bf16_f32"]
+        # Two more yardsticks for K1: K1's whole function in cuBLAS, the
+        # casts to bf16 timed; and the full-f32 product of the unrounded
         # operands, TF32 off (a slower function than K1's).
+        k1["library_cast_ms"] = _cuda_ms(
+            torch, lambda: torch.mm(x.bfloat16(), w.bfloat16(),
+                                    out_dtype=torch.float32), iters)
         with ieee_fp32():
-            rec["matmul_bf16_f32"]["library_f32_ms"] = _cuda_ms(
-                torch, lambda: x @ w, iters)
+            k1["library_f32_ms"] = _cuda_ms(torch, lambda: x @ w, iters)
+        # K1 in parts, on the card's own clock: the pack and the GEMM.
+        _, rows = _device_profile(
+            torch, lambda: gemm.matmul_bf16_f32(x, w), iters)
+        for part, kname in (("pack_ms", "pack_operands_kernel"),
+                            ("gemm_ms", "gemm_sm90_kernel")):
+            us = [r[1] / r[2] for r in rows if kname in r[0]]
+            if not us:
+                raise AssertionError(f"the profiler saw no {kname}")
+            k1[part] = us[0] / 1e3
+        k1["gemm_tflops"] = flops / k1["gemm_ms"] / 1e9
+        pack_bytes = (m * k + k * n) * 4 + (xb.numel() + wtb.numel()) * 2
+        k1["pack_bound_ms"] = pack_bytes / HBM_BYTES_PER_S * 1e3
         out[(m, k, n)] = rec
-        k1, k2 = rec["matmul_bf16_f32"], rec["dw_f32_bf16"]
+        k2 = rec["dw_f32_bf16"]
         say(f"K1 matmul_bf16_f32 (M,K,N)={(m, k, n)}: max|k-p| {k1_err:.3g}"
             f" <= 1e-4*max|p|; {k1['ms'] * 1e3:.1f} us "
             f"({k1['tflops']:.1f} TFLOP/s) vs bound "
             f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}, bf16 tensor "
-            f"cores) = {k1['bound_ms'] / k1['ms'] * 100:.1f}%; plain "
-            f"{k1['plain_ms'] * 1e3:.1f} us; torch.mm bf16 -> f32 "
-            f"{k1['library_ms'] * 1e3:.1f} us; torch.matmul f32 "
+            f"cores) = {k1['bound_ms'] / k1['ms'] * 100:.1f}%; in parts on "
+            f"the device: pack {k1['pack_ms'] * 1e3:.1f} us (bound "
+            f"{k1['pack_bound_ms'] * 1e3:.1f} us, bytes), GEMM "
+            f"{k1['gemm_ms'] * 1e3:.1f} us ({k1['gemm_tflops']:.1f} "
+            f"TFLOP/s); plain {k1['plain_ms'] * 1e3:.1f} us; torch.mm bf16 "
+            f"-> f32 {k1['library_ms'] * 1e3:.1f} us, with its casts "
+            f"{k1['library_cast_ms'] * 1e3:.1f} us; torch.matmul f32 "
             f"{k1['library_f32_ms'] * 1e3:.1f} us [{dev['smi']}]")
         say(f"K2 dw_f32_bf16 (M,K,N)={(m, k, n)}: max|k-p| {k2_err:.3g}, "
             f"{k2_beyond} of {k * n} beyond 1 bf16 ulp (max "
@@ -816,7 +885,8 @@ U8_TRANSFORMS = ("echo", "xor255", "incr")
 SERVE_STEP = 64 * 4096  # ServeOptions defaults: max_batch x token_bytes
 DOT128_K = (1 << 20) // 512  # bench.py:282-284's 1 MiB payload
 DOTBENCH = (4096, 32)  # bench.py:306 dotbench4096x32
-DOTBENCH_CHECKS = [(128, 4), (256, 2), (1000, 3)]
+# (N, T) checked: (256, 3) and (384, 2) on and past the GEMM's 256 tile.
+DOTBENCH_CHECKS = [(128, 4), (256, 2), (1000, 3), (256, 3), (384, 2)]
 
 
 def _dot128_tol(torch, x):
@@ -975,7 +1045,7 @@ def phase_device_kernels(torch, dev):
     lib_ms = _cuda_ms(torch, library_chain, 5, warmup=1)
     lib_one_ms = _cuda_ms(torch, lambda: torch.mm(a0, w), 20)
     step_ms = _kernel_device_ms(torch, lambda: dp.dotbench(seed_t, n, t), 2,
-                                "dotbench_step_kernel")
+                                "gemm_sm90_kernel")
     flops = t * 2.0 * n**3
     bound_ms = flops / BF16_TC_FLOPS * 1e3
     say(f"K6 dotbench{n}x{t}: {ms:.3f} ms per call ({flops / ms / 1e9:.1f} "
@@ -1773,6 +1843,11 @@ def main():
             "shape": list(GEMM_SHAPES[1]),
             "shapes": {str(list(k)): v[name] for k, v in gemm_recs.items()},
         })
+        if name == "matmul_bf16_f32":
+            kernels[-1].update({
+                "design": "tma_wgmma",
+                "library_cast_ms": rec["library_cast_ms"],
+                "pack_ms": rec["pack_ms"], "gemm_ms": rec["gemm_ms"]})
     f32 = fold_recs["float32"]
     kernels.append({
         "name": "ring_fold", "route": "cuda",
@@ -1804,6 +1879,8 @@ def main():
             "library_ms": rec["library_ms"], "shape": shape,
             "detail": rec,
         })
+        if name == "dotbench":
+            kernels[-1]["design"] = "tma_wgmma"
     kernels.append({
         "name": "fanout", "route": "cuda",
         "source": "tbus_torch/csrc/device_programs.cu",

@@ -36,15 +36,17 @@
 // bf16 and returned as f32. Bound: operations, T * 2 * N^3 flops at 989
 // TFLOP/s (4.45 ms for dotbench4096x32); the checksum reads 2 N^2 bytes.
 // Design: the operands live in device scratch the caller gives, padded to
-// Np = N rounded up to 128 with zeros (zero rows and columns stay zero
+// Np = N rounded up to 256 with zeros (zero rows and columns stay zero
 // through the chain and add nothing to the sum), so no tile is ragged;
 // W is stored transposed (n-major), so both operands are k-contiguous.
-// The product is a 128 x 128 x 32 tiled mma.sync m16n8k16 kernel (8 warps
-// of 64 x 32, ldmatrix fragments, rows padded to 80 bytes) fed by a
-// 4-stage cp.async pipeline, with the bf16 rounding and the scale in its
-// epilogue; the checksum is a two-pass reduction in a fixed order (block
-// partials, then one block), so it is the same from run to run. Only the
-// 4-byte seed and the 4-byte result cross PCIe. No TMA or wgmma yet.
+// Each product is gemm_sm90.cuh's TMA + wgmma mainloop (128 x 256 tiles,
+// blocks paired along M sharing Wt's rows by TMA multicast, a 4-stage
+// mbarrier ring, a producer warp and two wgmma consumer warpgroups) on
+// three tensor maps encoded per call (v0, v1, Wt), with the bf16 rounding
+// and the scale in its epilogue; only the order of each f32 sum differs
+// from the plain version. The checksum is a two-pass reduction
+// in a fixed order (block partials, then one block), so it is the same
+// from run to run. Only the 4-byte seed and the 4-byte result cross PCIe.
 //
 // K7, tbus_fanout — replaces cpp/tpu/native_fanout.cc:166 fanout_mlir, the
 // fused fan-out executable of the native collective engine: broadcast
@@ -62,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -166,144 +170,18 @@ __global__ void dotbench_init_kernel(const float* __restrict__ seed,
 }
 
 constexpr int kThreads = 256;
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLds = kBK + 8;  // bf16 per shared row: 80 bytes
-constexpr int kStages = 4;
-constexpr int kTileElems = kBM * kLds;  // one operand's tile in one stage
-constexpr int kGemmSmem = kStages * 2 * kTileElems * 2;  // bytes
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One k-slice of both operands into stage buffers: 128 rows x 32 bf16 =
-// 4 chunks of 16 bytes per row; each of the 256 threads copies 2 chunks
-// of each operand.
-__device__ __forceinline__ void load_stage(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ bt,
-    int np, long long row0, long long col0, int k0, __nv_bfloat16* as,
-    __nv_bfloat16* bs, int tid) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int chunk = tid + h * kThreads;
-    const int r = chunk >> 2, c = (chunk & 3) * 8;
-    cp_async16(as + r * kLds + c, a + (row0 + r) * np + k0 + c);
-    cp_async16(bs + r * kLds + c, bt + (col0 + r) * np + k0 + c);
+// K6's epilogue: out = bf16(bf16(acc) * inv), out [np][np] bf16.
+struct DotbenchStore {
+  __nv_bfloat16* out;
+  int np;
+  float inv;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    *reinterpret_cast<__nv_bfloat162*>(out + (long long)r * np + c) =
+        __floats2bfloat162_rn(bf16_round(v0) * inv, bf16_round(v1) * inv);
   }
-}
-
-// out = bf16(bf16(a . W) * inv), a [np][np] row-major, bt = W^T [np][np];
-// np a multiple of 128.
-__global__ void __launch_bounds__(kThreads)
-dotbench_step_kernel(const __nv_bfloat16* __restrict__ a,
-                     const __nv_bfloat16* __restrict__ bt,
-                     __nv_bfloat16* __restrict__ out, int np, float inv) {
-  extern __shared__ __align__(16) __nv_bfloat16 gsm[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const long long row0 = (long long)blockIdx.y * kBM;
-  const long long col0 = (long long)blockIdx.x * kBN;
-  const int kt_n = np / kBK;
-  auto a_stage = [&](int s) { return gsm + s * 2 * kTileElems; };
-  auto b_stage = [&](int s) { return gsm + s * 2 * kTileElems + kTileElems; };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_n) {
-      load_stage(a, bt, np, row0, col0, s * kBK, a_stage(s), b_stage(s), tid);
-    }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt landed; stage kt - 1 is free to refill
-    const int next = kt + kStages - 1;
-    if (next < kt_n) {
-      const int s = next % kStages;
-      load_stage(a, bt, np, row0, col0, next * kBK, a_stage(s), b_stage(s),
-                 tid);
-    }
-    cp_async_commit();
-    const __nv_bfloat16* as = a_stage(kt % kStages);
-    const __nv_bfloat16* bs = b_stage(kt % kStages);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldsm_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * kLds + kk +
-                            (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        uint32_t r[4];
-        ldsm_x4(r, bs + (wn + nj * 8 + (lane & 7) + ((lane >> 4) << 3)) *
-                            kLds + kk + ((lane >> 3) & 1) * 8);
-        bf[nj][0] = r[0]; bf[nj][1] = r[1];
-        bf[nj + 1][0] = r[2]; bf[nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const long long r = row0 + wm + mi * 16 + g;
-      const long long c = col0 + wn + ni * 8 + t2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-        const float d0 = bf16_round(acc[mi][ni][2 * h]);
-        const float d1 = bf16_round(acc[mi][ni][2 * h + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(out + (r + 8 * h) * np + c) =
-            __floats2bfloat162_rn(d0 * inv, d1 * inv);
-      }
-    }
-  }
-}
+};
 
 constexpr int kSumBlocks = 1024;
 
@@ -444,8 +322,11 @@ int tbus_dot128(const void* x, void* y, long long k, void* stream) {
   return int(cudaGetLastError());
 }
 
-// Np for dotbench's scratch: n rounded up to a multiple of 128.
-long long tbus_dotbench_padded(long long n) { return (n + 127) / 128 * 128; }
+// Np for dotbench's scratch: n rounded up to a multiple of the shared
+// mainloop's tiles (256).
+long long tbus_dotbench_padded(long long n) {
+  return (n + sm90::kBN - 1) / sm90::kBN * sm90::kBN;
+}
 
 // Bytes of f32 partials dotbench's checksum needs.
 long long tbus_dotbench_partial_bytes(void) { return kSumBlocks * 4; }
@@ -460,29 +341,30 @@ int tbus_dotbench(const void* seed, void* wt, void* v0, void* v1,
   if (n < 1 || t < 0 || n > 65536) return int(cudaErrorInvalidValue);
   const int np = int(tbus_dotbench_padded(n));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        dotbench_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kGemmSmem);
-    if (e != cudaSuccess) return int(e);
-    attr_set = true;
-  }
   auto* w = static_cast<__nv_bfloat16*>(wt);
   __nv_bfloat16* bufs[2] = {static_cast<__nv_bfloat16*>(v0),
                             static_cast<__nv_bfloat16*>(v1)};
+  CUtensorMap v_maps[2], w_map;
+  cudaError_t e =
+      sm90::encode_kmajor_bf16(&v_maps[0], v0, np, np, sm90::kBM);
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&v_maps[1], v1, np, np, sm90::kBM);
+  }
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&w_map, wt, np, np,
+                                 sm90::kBN / sm90::kCluster);
+  }
+  if (e != cudaSuccess) return int(e);
   const long long total = (long long)np * np;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > (long long)num_sms() * 8) blocks = (long long)num_sms() * 8;
   dotbench_init_kernel<<<unsigned(blocks), kThreads, 0, s>>>(
       static_cast<const float*>(seed), w, bufs[0], int(n), np);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(unsigned(np / kBN), unsigned(np / kBM));
   for (long long k = 0; k < t; ++k) {
-    dotbench_step_kernel<<<grid, kThreads, kGemmSmem, s>>>(
-        bufs[k & 1], w, bufs[(k + 1) & 1], np, inv);
-    e = cudaGetLastError();
+    e = sm90::gemm(v_maps[k & 1], w_map, np, np, np,
+                   DotbenchStore{bufs[(k + 1) & 1], np, inv}, s);
     if (e != cudaSuccess) return int(e);
   }
   dotbench_sum_partial<<<kSumBlocks, kThreads, 0, s>>>(

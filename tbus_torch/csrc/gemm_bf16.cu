@@ -11,18 +11,21 @@
 //   dW = f32(bf16_rn(bf16(x)^T . dy))        dy stays f32, summed in f32
 //
 // K1, tbus_matmul_bf16_f32: x [M, K] and w [K, N], each f32 or bf16, are
-// rounded to bf16 (round to nearest even) as they are loaded, multiplied
-// exactly on the tensor cores (mma.sync m16n8k16, bf16 in, f32 sum) and
-// written as f32 [M, N]. Bound: operations. 2*M*N*K flops at the card's
-// bf16 tensor-core rate (989 TFLOP/s on an H100 SXM) against 4*(M*K + K*N
-// + M*N) bytes at 3.35 TB/s; at M = N = K = 4096 the flops bound is 0.139
-// ms and the bytes bound 0.060 ms. Design: one 256-thread block per 128 x
-// 128 output tile; 8 warps of 64 x 32 each; the K loop stages a 128 x 32
-// slice of x and a 32 x 128 slice of w in shared memory, converted to bf16
-// on the way in, w stored n-major so that ldmatrix reads both operands'
-// fragments directly (rows padded to 80 bytes: conflict-free). Two shared
-// buffers: each slice's global loads are issued before the previous
-// slice's products and stored after them. No TMA or wgmma yet.
+// rounded to bf16 (round to nearest even), multiplied exactly on the
+// tensor cores, summed in f32 and written as f32 [M, N]. Bound: operations.
+// 2*M*N*K flops at the card's bf16 tensor-core rate (989 TFLOP/s on an H100
+// SXM) against 4*(M*K + K*N + M*N) bytes at 3.35 TB/s; at M = N = K = 4096
+// the flops bound is 0.139 ms and the bytes bound 0.060 ms. Design: two
+// launches. (1) pack_operands_kernel, memory-bound, rounds each element
+// once: xb [Mp, Kp] = bf16(x) in 16-byte chunks, and wtb [Np, Kp] =
+// bf16(w)^T through a 64 x 64 shared-memory tile, both zero-padded to the
+// shared mainloop's tile (Mp, Np multiples of 256, Kp of 64; the
+// zeros add nothing to the sums). (2) gemm_sm90.cuh's TMA + wgmma
+// mainloop on xb and wtb, both K-major (blocks paired along M share wtb's
+// rows by TMA multicast), with an epilogue that stores f32 y masked to
+// (M, N). The caller allocates xb and wtb. Only the order of the
+// f32 sum differs from the plain version. A producer that read f32 and
+// converted as it filled the ring would save the pack's bytes: later work.
 //
 // K2, tbus_dw_f32_bf16: dW [K, N] = bf16_rn(sum_m bf16(x[m, k]) * dy[m, n])
 // with dy in full f32. A bf16 dy on the tensor cores would be another
@@ -43,195 +46,126 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_sm90.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
 // ---- K1 ----
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLds = kBK + 8;  // bf16 per shared row: 80 bytes
+constexpr int kPackThreads = 256;
+constexpr int kPackTile = 64;  // w's transpose tile: 64 k x 64 n
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 // Two values as a bf16x2 word, the first in the low half.
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return uint32_t(__bfloat16_as_ushort(lo)) |
-         (uint32_t(__bfloat16_as_ushort(hi)) << 16);
-}
 
-__device__ __forceinline__ float zero_of(float) { return 0.f; }
-__device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) {
-  return __float2bfloat16_rn(0.f);
-}
-
-// 16 consecutive elements from src (the first `valid` of them real, the
-// rest zero) as 8 bf16x2 words; 16-byte vector loads when whole and
-// aligned.
-__device__ __forceinline__ void load16(const float* src, int valid,
-                                       uint32_t (&out)[8]) {
-  if (valid >= 16 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+// 8 consecutive elements of src (the first `valid` real, the rest zero) as
+// 4 bf16x2 words; 16-byte vector loads when whole and aligned.
+__device__ __forceinline__ uint4 load8(const float* src, int valid) {
+  uint32_t o[4];
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4 a = reinterpret_cast<const float4*>(src)[0];
+    const float4 b = reinterpret_cast<const float4*>(src)[1];
+    o[0] = pack2(a.x, a.y); o[1] = pack2(a.z, a.w);
+    o[2] = pack2(b.x, b.y); o[3] = pack2(b.z, b.w);
+  } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 v = reinterpret_cast<const float4*>(src)[i];
-      out[2 * i] = pack2(v.x, v.y);
-      out[2 * i + 1] = pack2(v.z, v.w);
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    out[i] = pack2(2 * i < valid ? src[2 * i] : 0.f,
+      o[i] = pack2(2 * i < valid ? src[2 * i] : 0.f,
                    2 * i + 1 < valid ? src[2 * i + 1] : 0.f);
+    }
   }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, int valid,
-                                       uint32_t (&out)[8]) {
-  if (valid >= 16 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, int valid) {
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    return *reinterpret_cast<const uint4*>(src);
+  }
+  uint32_t o[4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
-      out[4 * i] = v.x; out[4 * i + 1] = v.y;
-      out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = 2 * i < valid ? __bfloat16_as_ushort(src[2 * i]) : 0;
+    const uint32_t hi =
+        2 * i + 1 < valid ? __bfloat16_as_ushort(src[2 * i + 1]) : 0;
+    o[i] = lo | (hi << 16);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Blocks [0, x_blocks) write xb [Mp][Kp] = bf16(x), zero-padded, 8 values
+// (16 bytes) per thread and step; the rest write wtb [Np][Kp] = bf16(w)^T,
+// zero-padded, one 64 x 64 tile each: read along n, written along k.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kPackThreads)
+pack_operands_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                     __nv_bfloat16* __restrict__ xb,
+                     __nv_bfloat16* __restrict__ wtb, int M, int N, int K,
+                     long long Mp, long long Kp, int x_blocks) {
+  const int tid = threadIdx.x;
+  if (int(blockIdx.x) < x_blocks) {
+    const long long per_row = Kp / 8;
+    const long long chunks = Mp * per_row;
+    const long long stride = (long long)x_blocks * kPackThreads;
+    for (long long c = blockIdx.x * (long long)kPackThreads + tid;
+         c < chunks; c += stride) {
+      const long long r = c / per_row, k0 = (c % per_row) * 8;
+      const long long valid = r < M ? K - k0 : 0;
+      const uint4 v = valid > 0
+                          ? load8(x + r * K + k0, int(valid < 8 ? valid : 8))
+                          : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(xb + r * Kp + k0) = v;
     }
     return;
   }
-  const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
+  __shared__ float tile[kPackTile][kPackTile + 1];  // [n][k]
+  const long long t = blockIdx.x - x_blocks;
+  const long long tiles_k = Kp / kPackTile;
+  const long long k0 = (t % tiles_k) * kPackTile;
+  const long long n0 = (t / tiles_k) * kPackTile;
+  const int j = tid % kPackTile;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    out[i] = pack2(2 * i < valid ? src[2 * i] : z,
-                   2 * i + 1 < valid ? src[2 * i + 1] : z);
+  for (int it = 0; it < kPackTile * kPackTile / kPackThreads; ++it) {
+    const int i = it * (kPackThreads / kPackTile) + tid / kPackTile;
+    const long long k = k0 + i, n = n0 + j;
+    tile[j][i] = k < K && n < N ? as_float(w[k * N + n]) : 0.f;
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One K slice in registers on its way to shared memory: thread t holds 16
-// k-values of x row t / 2 and 16 k-values of w column t % 128.
-struct Slice {
-  uint32_t a[8], b[8];
-};
-
-template <typename TX, typename TW>
-__device__ __forceinline__ void load_slice(
-    const TX* __restrict__ x, const TW* __restrict__ w, int M, int N, int K,
-    int64_t row0, int64_t col0, int k0, int tid, Slice& s) {
-  const int64_t gr = row0 + (tid >> 1);
-  const int ka = k0 + (tid & 1) * 16;
-  const int valid = gr < M ? min(16, K - ka) : 0;
-  load16(x + (gr < M ? gr * K + ka : 0), valid, s.a);
-  const int64_t gn = col0 + (tid & 127);
-  const int kb = k0 + (tid >> 7) * 16;
-  const TW z = zero_of(TW());
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = kb + 2 * i;
-    const bool ok = gn < N;
-    s.b[i] = pack2(ok && k < K ? w[int64_t(k) * N + gn] : z,
-                   ok && k + 1 < K ? w[int64_t(k + 1) * N + gn] : z);
-  }
-}
-
-__device__ __forceinline__ void store_slice(
-    __nv_bfloat16 (*As)[kLds], __nv_bfloat16 (*Bs)[kLds], int tid,
-    const Slice& s) {
-  uint4* a = reinterpret_cast<uint4*>(&As[tid >> 1][(tid & 1) * 16]);
-  a[0] = make_uint4(s.a[0], s.a[1], s.a[2], s.a[3]);
-  a[1] = make_uint4(s.a[4], s.a[5], s.a[6], s.a[7]);
-  uint4* b = reinterpret_cast<uint4*>(&Bs[tid & 127][(tid >> 7) * 16]);
-  b[0] = make_uint4(s.b[0], s.b[1], s.b[2], s.b[3]);
-  b[1] = make_uint4(s.b[4], s.b[5], s.b[6], s.b[7]);
-}
-
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(kThreads)
-matmul_bf16_f32_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                       float* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kBM][kLds];  // [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBN][kLds];  // [n][k]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int64_t row0 = int64_t(blockIdx.y) * kBM;
-  const int64_t col0 = int64_t(blockIdx.x) * kBN;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  Slice s;
-  load_slice(x, w, M, N, K, row0, col0, 0, tid, s);
-  store_slice(As[0], Bs[0], tid, s);
   __syncthreads();
-  for (int k0 = 0, cur = 0; k0 < K; k0 += kBK, cur ^= 1) {
-    const bool more = k0 + kBK < K;
-    // The next slice's loads are in flight while this one is multiplied.
-    if (more) load_slice(x, w, M, N, K, row0, col0, k0 + kBK, tid, s);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldsm_x4(a[mi], &As[cur][wm + mi * 16 + (lane & 15)]
-                          [kk + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; nj += 2) {
-        uint32_t r[4];
-        ldsm_x4(r, &Bs[cur][wn + nj * 8 + (lane & 7) + ((lane >> 4) << 3)]
-                       [kk + ((lane >> 3) & 1) * 8]);
-        b[nj][0] = r[0]; b[nj][1] = r[1];
-        b[nj + 1][0] = r[2]; b[nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
-    }
-    if (more) store_slice(As[cur ^ 1], Bs[cur ^ 1], tid, s);
-    __syncthreads();
-  }
-
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int64_t r = row0 + wm + mi * 16 + g;
-      const int64_t c = col0 + wn + ni * 8 + t2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
-        const int64_t rr = r + 8 * h;
-        if (rr >= M) continue;
-        if (c < N) y[rr * N + c] = acc[mi][ni][2 * h];
-        if (c + 1 < N) y[rr * N + c + 1] = acc[mi][ni][2 * h + 1];
-      }
-    }
+  for (int h = 0; h < kPackTile * kPackTile / 8 / kPackThreads; ++h) {
+    const int q = tid + h * kPackThreads;
+    const int r = q / 8, kc = (q % 8) * 8;
+    const float* src = &tile[r][kc];
+    *reinterpret_cast<uint4*>(wtb + (n0 + r) * Kp + k0 + kc) = make_uint4(
+        pack2(src[0], src[1]), pack2(src[2], src[3]), pack2(src[4], src[5]),
+        pack2(src[6], src[7]));
   }
 }
+
+// K1's epilogue: f32 y [M][N], masked.
+struct StoreF32 {
+  float* y;
+  int M, N;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    if (r >= M || c >= N) return;
+    float* p = y + (long long)r * N + c;
+    if (c + 1 < N && (N & 1) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+    } else {
+      p[0] = v0;
+      if (c + 1 < N) p[1] = v1;
+    }
+  }
+};
 
 // ---- K2 ----
 
@@ -351,33 +285,66 @@ dw_f32_bf16_kernel(const TX* __restrict__ x, const float* __restrict__ dy,
 }
 
 template <typename TX, typename TW>
-void launch_matmul(const void* x, const void* w, float* y, int M, int N, int K,
-                   cudaStream_t stream) {
-  dim3 grid(unsigned((N + kBN - 1) / kBN), unsigned((M + kBM - 1) / kBM));
-  matmul_bf16_f32_kernel<TX, TW><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w), y, M, N, K);
+void launch_pack(const void* x, const void* w, __nv_bfloat16* xb,
+                 __nv_bfloat16* wtb, int M, int N, int K, long long Mp,
+                 long long Np, long long Kp, cudaStream_t stream) {
+  const long long x_chunks = Mp * (Kp / 8);
+  long long x_blocks = (x_chunks + kPackThreads - 1) / kPackThreads;
+  if (x_blocks > 1024) x_blocks = 1024;  // grid-stride beyond
+  const long long w_tiles = (Np / kPackTile) * (Kp / kPackTile);
+  pack_operands_kernel<TX, TW>
+      <<<unsigned(x_blocks + w_tiles), kPackThreads, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w), xb, wtb, M,
+          N, K, Mp, Kp, int(x_blocks));
 }
 
 }  // namespace
 
+// K1's scratch shape for x [M, K] and w [K, N]: out = {Mp, Kp, Np}, each
+// rounded up to the shared mainloop's tile (sm90::padded).
+extern "C" void tbus_gemm_padded(long long m, long long k, long long n,
+                                 long long* out) {
+  sm90::padded(m, k, n, out);
+}
+
+// K1. xb: bf16 [Mp][Kp] and wtb: bf16 [Np][Kp] scratch the caller gives,
+// shaped as tbus_gemm_padded says; both 16-byte aligned. Both are written
+// in full, padding zeroed.
 extern "C" int tbus_matmul_bf16_f32(const void* x, const void* w, void* y,
-                                    int M, int N, int K, int x_dtype,
-                                    int w_dtype, void* stream) {
-  if (M <= 0 || N <= 0) return int(cudaSuccess);
+                                    void* xb, void* wtb, int M, int N, int K,
+                                    long long Mp, long long Np, long long Kp,
+                                    int x_dtype, int w_dtype, void* stream) {
+  if (M < 0 || N < 0 || K < 0 || !sm90::tiles(Mp, Np, Kp) || Mp < M ||
+      Np < N || Kp < K) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (M == 0 || N == 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(y);
+  auto* a = static_cast<__nv_bfloat16*>(xb);
+  auto* b = static_cast<__nv_bfloat16*>(wtb);
   if (x_dtype == 0 && w_dtype == 0) {
-    launch_matmul<float, float>(x, w, out, M, N, K, s);
+    launch_pack<float, float>(x, w, a, b, M, N, K, Mp, Np, Kp, s);
   } else if (x_dtype == 0 && w_dtype == 1) {
-    launch_matmul<float, __nv_bfloat16>(x, w, out, M, N, K, s);
+    launch_pack<float, __nv_bfloat16>(x, w, a, b, M, N, K, Mp, Np, Kp, s);
   } else if (x_dtype == 1 && w_dtype == 0) {
-    launch_matmul<__nv_bfloat16, float>(x, w, out, M, N, K, s);
+    launch_pack<__nv_bfloat16, float>(x, w, a, b, M, N, K, Mp, Np, Kp, s);
   } else if (x_dtype == 1 && w_dtype == 1) {
-    launch_matmul<__nv_bfloat16, __nv_bfloat16>(x, w, out, M, N, K, s);
+    launch_pack<__nv_bfloat16, __nv_bfloat16>(x, w, a, b, M, N, K, Mp, Np,
+                                              Kp, s);
   } else {
     return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  CUtensorMap a_map, b_map;
+  e = sm90::encode_kmajor_bf16(&a_map, xb, Mp, Kp, sm90::kBM);
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&b_map, wtb, Np, Kp,
+                                 sm90::kBN / sm90::kCluster);
+  }
+  if (e != cudaSuccess) return int(e);
+  return int(sm90::gemm(a_map, b_map, Mp, Np, Kp,
+                        StoreF32{static_cast<float*>(y), M, N}, s));
 }
 
 extern "C" int tbus_dw_f32_bf16(const void* x, const void* dy, void* dw, int M,

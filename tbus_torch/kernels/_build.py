@@ -15,8 +15,9 @@
 - the C++ core itself, through :func:`tbus_torch._native.build`, when it is
   missing (the protobuf-free flavour where protobuf's headers are absent).
 
-Each output's file name carries a hash of its sources and flags, so a
-changed source builds anew and a stale library is never loaded. Builds
+Each output's file name carries a hash of its sources and flags (for a
+kernel, the ``.cu`` and every local header it includes), so a changed
+source or header builds anew and a stale library is never loaded. Builds
 are safe when several processes (pytest-xdist workers) race: a file lock
 serialises them, and the kernel and bridge libraries appear by an atomic
 rename.
@@ -28,6 +29,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,6 +50,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
 # The compiler's report of each build this process ran (name -> stderr):
 # with -Xptxas=-v, every kernel's registers, shared memory and spills.
+# Every build also keeps it beside its output, as <output>.log.
 build_logs: Dict[str, str] = {}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,6 +98,8 @@ def _build(name: str, out_name: str, cmd_for: Callable[[str], List[str]],
         if proc.returncode != 0:
             raise RuntimeError(
                 f"building {name} failed:\n{proc.stdout}\n{proc.stderr}")
+        with open(f"{out}.log", "w") as f:  # before out: a cached out
+            f.write(proc.stderr)            # always has its report
         os.replace(tmp, out)
         build_seconds[name] = time.monotonic() - t0
         build_logs[name] = proc.stderr
@@ -125,17 +130,105 @@ def core() -> str:
                            f"{e.stdout}\n{e.stderr}") from e
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def cuda_sources(name: str, csrc: str = _CSRC) -> List[str]:
+    """csrc/<name>.cu and the local headers it includes ("..."), with
+    theirs in turn: what the build of lib<name>.so depends on."""
+    todo, seen = [os.path.join(csrc, f"{name}.cu")], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path) as f:
+            text = f.read()
+        todo += [os.path.join(os.path.dirname(path), inc)
+                 for inc in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(os.path.dirname(path), inc))]
+    return seen
+
+
+def cuda_digest(name: str, csrc: str = _CSRC) -> str:
+    """The hash in lib<name>.so's file name: its sources and NVCC_FLAGS."""
+    return _digest(cuda_sources(name, csrc), NVCC_FLAGS)
+
+
 def _cuda_lib(name: str, signatures: List[Tuple[str, list, object]]
               ) -> ctypes.CDLL:
     """csrc/<name>.cu built with nvcc into lib<name>.so at first use."""
     lib = _loaded.get(name)  # the per-launch fast path
     if lib is not None:
         return lib
-    src = os.path.join(_CSRC, f"{name}.cu")
+    srcs = cuda_sources(name)
     path = _build(name, f"lib{name}.so",
-                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                  ([src], NVCC_FLAGS))
+                  lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp, srcs[0]],
+                  (srcs, NVCC_FLAGS))
     return _load(name, path, signatures)
+
+
+def _sass_sections(lib_path: str) -> Dict[str, str]:
+    """Each kernel's SASS in lib_path (mangled name -> text), from
+    cuobjdump beside nvcc."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True)
+    out: Dict[str, str] = {}
+    for part in proc.stdout.split("Function : ")[1:]:
+        head, _, body = part.partition("\n")
+        out[head.strip()] = body
+    return out
+
+
+def gemm_sass(name: str, kernel: str = "gemm_sm90_kernel"
+              ) -> Dict[str, Dict[str, int]]:
+    """For each kernel of lib<name>.so (built and loaded) whose name holds
+    `kernel`: how many HGMMA (wgmma) and HMMA (mma.sync) instructions its
+    SASS has."""
+    lib = _loaded.get(name)
+    if lib is None:
+        raise RuntimeError(f"lib{name}.so is not loaded")
+    return {fn: {"HGMMA": len(re.findall(r"\bHGMMA\.", body)),
+                 "HMMA": len(re.findall(r"\bHMMA\.", body))}
+            for fn, body in _sass_sections(lib._name).items()
+            if kernel in fn}
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spill bytes of each kernel of lib<name>.so (built and
+    loaded) from its build's -Xptxas=-v report, kept beside the library,
+    whether this process built it or found it built."""
+    lib = _loaded.get(name)
+    if lib is None:
+        raise RuntimeError(f"lib{name}.so is not loaded")
+    try:
+        with open(f"{lib._name}.log") as f:
+            return parse_ptxas(f.read())
+    except FileNotFoundError:
+        raise RuntimeError(f"no build report beside {lib._name}") from None
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel's registers and spill bytes in a -Xptxas=-v report."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -151,8 +244,9 @@ def row_transform_lib() -> ctypes.CDLL:
 def gemm_lib() -> ctypes.CDLL:
     """The fan-out step's K1 and K2 (csrc/gemm_bf16.cu)."""
     return _cuda_lib("gemm_bf16", [
-        ("tbus_matmul_bf16_f32", [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-         _I),
+        ("tbus_gemm_padded", [_LL, _LL, _LL, ctypes.POINTER(_LL)], None),
+        ("tbus_matmul_bf16_f32", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL,
+                                  _LL, _LL, _I, _I, _VP], _I),
         ("tbus_dw_f32_bf16", [_VP, _VP, _VP, _I, _I, _I, _I, _VP], _I)])
 
 

@@ -6,7 +6,10 @@ make_fanout_step.shard_body:
 
 - :func:`matmul_bf16_f32` (K1), ``dot(bf16(x), bf16(w),
   preferred_element_type=f32)`` (:188-189): x [M, K] and w [K, N], f32 or
-  bf16, rounded to bf16, multiplied exactly, summed in f32, f32 [M, N] out;
+  bf16, rounded to bf16, multiplied exactly, summed in f32, f32 [M, N] out.
+  On the card it is two launches: a pack of both operands into bf16
+  K-major scratch padded to the GEMM's tile (:func:`pack_reference` is its
+  plain version), then the TMA + wgmma GEMM of csrc/gemm_sm90.cuh;
 - :func:`dw_f32_bf16` (K2), its transpose for w: ``bf16(bf16(x)^T . dy)``
   as f32 [K, N], with dy kept in f32 (the reference's jaxpr rounds dW, not
   dy, to bf16).
@@ -18,6 +21,8 @@ versions run their f32 products with TF32 off.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
@@ -28,6 +33,21 @@ matmul_launches = 0
 dw_launches = 0
 
 _MAX_DIM = 2**31 - 1
+
+# The shared GEMM's tile (csrc/gemm_sm90.cuh: kCluster blocks of kBM rows,
+# kBN columns, kBK deep), for the plain pack. The kernel takes its scratch
+# shape from C (tbus_gemm_padded); tests hold this copy to the header.
+TILE = (256, 256, 64)
+
+
+def _round_up(v: int, to: int) -> int:
+    return max(1, -(-v // to)) * to
+
+
+def padded_shape(m: int, k: int, n: int, tile=TILE):
+    """(Mp, Kp, Np): M, K, N rounded up to the tile (at least one)."""
+    bm, bn, bk = tile
+    return _round_up(m, bm), _round_up(k, bk), _round_up(n, bn)
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor, inner: int) -> None:
@@ -54,6 +74,19 @@ def matmul_bf16_f32_reference(x: torch.Tensor,
         return x.bfloat16().float() @ w.bfloat16().float()
 
 
+def pack_reference(x: torch.Tensor, w: torch.Tensor, tile=TILE):
+    """Plain version of K1's pack: (xb [Mp, Kp], wtb [Np, Kp]), bf16(x) and
+    bf16(w)^T (round to nearest even), zero-padded to the tile."""
+    _check("matmul_bf16_f32", x, w, 1)
+    (m, k), n = x.shape, w.shape[1]
+    mp, kp, np_ = padded_shape(m, k, n, tile)
+    xb = torch.zeros((mp, kp), dtype=torch.bfloat16, device=x.device)
+    wtb = torch.zeros((np_, kp), dtype=torch.bfloat16, device=x.device)
+    xb[:m, :k] = x.bfloat16()
+    wtb[:n, :k] = w.bfloat16().T
+    return xb, wtb
+
+
 def dw_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain version of K2, on any device."""
     _check("dw_f32_bf16", x, dy, 0)
@@ -68,27 +101,44 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def matmul_bf16_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32 [M, N] = bf16(x) . bf16(w), summed in f32. Launches K1 for CUDA
-    tensors; the plain version serves only tensors on the CPU."""
-    global matmul_launches
-    _check("matmul_bf16_f32", x, w, 1)
+    """f32 [M, N] = bf16(x) . bf16(w), summed in f32. Launches K1 (pack,
+    then GEMM; counted once) for CUDA tensors; the plain version serves
+    only tensors on the CPU."""
     if x.device.type == "cpu":
         return matmul_bf16_f32_reference(x, w)
+    return matmul_bf16_f32_packed(x, w)[0]
+
+
+def matmul_bf16_f32_packed(x: torch.Tensor, w: torch.Tensor):
+    """K1 on CUDA tensors, its scratch kept: (y, xb, wtb), where y is
+    matmul_bf16_f32's result and xb, wtb the operands as the pack kernel
+    wrote them (:func:`pack_reference` is their plain version)."""
+    global matmul_launches
+    _check("matmul_bf16_f32", x, w, 1)
+    if x.device.type != "cuda":
+        raise ValueError(f"matmul_bf16_f32_packed: needs CUDA tensors, got "
+                         f"{x.device}")
     from tbus_torch.kernels import _build
 
     lib = _build.gemm_lib()
     x, w = x.contiguous(), w.contiguous()
     (m, k), n = x.shape, w.shape[1]
+    dims = (ctypes.c_longlong * 3)()
+    lib.tbus_gemm_padded(m, k, n, dims)
+    mp, kp, np_ = dims
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    xb = torch.empty((mp, kp), dtype=torch.bfloat16, device=x.device)
+    wtb = torch.empty((np_, kp), dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.tbus_matmul_bf16_f32(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
-            DTYPE_CODES[x.dtype], DTYPE_CODES[w.dtype], _stream(x))
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), xb.data_ptr(),
+            wtb.data_ptr(), m, n, k, mp, np_, kp, DTYPE_CODES[x.dtype],
+            DTYPE_CODES[w.dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"matmul_bf16_f32 kernel launch failed: CUDA "
                            f"error {err}")
     matmul_launches += 1
-    return y
+    return y, xb, wtb
 
 
 def dw_f32_bf16(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

@@ -69,7 +69,7 @@ def test_dot128_matches_plain_version(k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t", [(128, 1), (128, 4), (256, 2), (130, 2),
-                                 (1000, 3), (2048, 4)])
+                                 (1000, 3), (2048, 4), (256, 3), (384, 2)])
 def test_dotbench_matches_plain_version(n, t):
     _need_card()
     seed = 0.375
@@ -88,6 +88,20 @@ def test_dotbench_matches_plain_version(n, t):
     assert bool(((a - b).abs() <= tol).all())
     sum_tol = (2.0**-7 + n * 2.0**-24) * float(b.abs().sum())
     assert abs(float(got_sum.reshape(())) - float(want_sum)) <= sum_tol
+
+
+@pytest.mark.cuda
+def test_k6_gemm_runs_wgmma():
+    """K6's products are the TMA + wgmma mainloop: HGMMA in its SASS, no
+    HMMA (mma.sync)."""
+    _need_card()
+    from tbus_torch.kernels import _build
+
+    dp.dotbench(torch.tensor([0.5], device="cuda"), 128, 1)
+    report = _build.gemm_sass("device_programs")
+    assert report, "no gemm_sm90_kernel in libdevice_programs"
+    for fn, counts in report.items():
+        assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, (fn, counts)
 
 
 @pytest.mark.cuda

@@ -25,10 +25,12 @@ import torch
 
 from tbus_torch.kernels import gemm
 
-# (M, K, N): the entry's shape, one dense layer of a 7B-class model, and
-# ragged shapes that are no multiple of any tile.
+# (M, K, N): the entry's shape, one dense layer of a 7B-class model,
+# ragged shapes that are no multiple of any tile, shapes on and one past
+# the shared GEMM's tile edges (128 rows, 256 columns, 64 deep), and long K.
 SHAPES = [(4, 16, 16), (4096, 4096, 4096), (1, 1, 1), (37, 29, 50),
-          (130, 129, 257), (200, 300, 33), (4, 16, 32)]
+          (130, 129, 257), (200, 300, 33), (4, 16, 32), (128, 64, 256),
+          (129, 65, 257), (256, 4104, 384), (64, 16384, 64)]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -76,6 +78,21 @@ def test_matmul_kernel_matches_plain_version(card, shape, x_dtype, w_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("x_dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("w_dtype", DTYPES, ids=str)
+def test_pack_kernel_equals_plain_pack(card, shape, x_dtype, w_dtype):
+    """K1's pack writes the bits and the padded shape of pack_reference."""
+    m, k, n = shape
+    x, w, _ = _operands(card, m, k, n, seed=2 * m + n)
+    x, w = x.to(x_dtype), w.to(w_dtype)
+    _, xb, wtb = gemm.matmul_bf16_f32_packed(x, w)
+    want_xb, want_wtb = gemm.pack_reference(x, w)
+    assert xb.shape == want_xb.shape and wtb.shape == want_wtb.shape
+    assert torch.equal(xb, want_xb) and torch.equal(wtb, want_wtb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("x_dtype", DTYPES, ids=str)
 def test_dw_kernel_within_one_bf16_ulp(card, shape, x_dtype):
     m, k, n = shape
     x, _, dy = _operands(card, m, k, n, seed=3 * m + k)
@@ -115,3 +132,17 @@ def test_autograd_function_runs_both_kernels(card):
     torch.cuda.synchronize()
     assert (gemm.matmul_launches, gemm.dw_launches) == (m0 + 1, d0 + 1)
     assert torch.equal(g, gemm.dw_f32_bf16(x, dy))
+
+
+@pytest.mark.cuda
+def test_k1_gemm_runs_wgmma(card):
+    """K1's GEMM is the TMA + wgmma mainloop: HGMMA in its SASS, no HMMA
+    (mma.sync)."""
+    x, w, _ = _operands(card, 4, 16, 16, seed=1)
+    gemm.matmul_bf16_f32(x, w)
+    from tbus_torch.kernels import _build
+
+    report = _build.gemm_sass("gemm_bf16")
+    assert report, "no gemm_sm90_kernel in libgemm_bf16"
+    for fn, counts in report.items():
+        assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, (fn, counts)
