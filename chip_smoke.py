@@ -34,8 +34,9 @@ serving over 4 shard servers, and the device stream sink with its bench.
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
-bridges with g++; the shared GEMM's registers and spills from ptxas, and
-cuobjdump's SASS of K1's and K6's GEMM: HGMMA (wgmma), no HMMA; (iii)
+bridges with g++; the registers and spills from ptxas, and cuobjdump's
+SASS of K1's, K2's and K6's GEMM and of K3's split-term fold: HGMMA
+(wgmma), no HMMA; (iii)
 row_transform against its plain version at path 1's shapes, timed beside
 its bound; (iv) the runtime's device kind against its host kind; (v)
 path 1 through the runtime entry points the bridge calls, with its
@@ -45,11 +46,14 @@ lowered calls; (vii) K1 and K2 against their plain versions at the
 entry's shape, at hidden 4096 x rows 4096, at the shared TMA + wgmma
 GEMM's tile edges and at long K, timed beside their bounds and cuBLAS
 (torch.mm bf16 -> f32, with and without its casts; torch.matmul f32), K1
-in parts (pack and GEMM, from the profiler); (viii) K3 against its plain
-version over 4 carried folds at 8192 x 8192 x 128 (32K context on a
-4-position ring), in f32 and bf16, timed beside its bound and
-scaled_dot_product_attention, and at head dims 256 and 200 (more than
-one of the kernel's head-dim chunks); (ix) path 2 through
+and K2 in parts (pack and GEMM, from the profiler), both packs bit-equal
+to their plain versions; (viii) K3 against its plain version over 4
+carried folds at 8192 x 8192 x 128 (32K context on a 4-position ring),
+in f32 and bf16, with the fused last fold (o / l in q's dtype), timed
+beside its bound (the split-term design's bf16 passes, the f32 FMA
+figure beside) and scaled_dot_product_attention, in parts (pack, fold,
+combine), and at head dims 256 and 200 (the chunked f32 FMA kernel);
+(ix) path 2 through
 entry(device="cuda") at the entry's shapes and at hidden 4096, and
 make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
 before and read after, held against the same step on the CPU's plain
@@ -205,15 +209,18 @@ def phase_build():
 
 
 def _check_gemm_build(_build):
-    """K1's and K6's GEMM is the TMA + wgmma mainloop: HGMMA and no HMMA
-    in its SASS, and no spills in ptxas's report of the build (kept beside
-    the library, so a cached build is checked too)."""
-    for lib in ("gemm_bf16", "device_programs"):
-        sass = _build.gemm_sass(lib)
+    """K1's, K2's and K6's GEMM is the TMA + wgmma mainloop, and K3's
+    d <= 128 fold the split-term wgmma kernel: HGMMA and no HMMA in their
+    SASS, and no spills in ptxas's report of the build (kept beside the
+    library, so a cached build is checked too)."""
+    for lib, kernel in (("gemm_bf16", "gemm_sm90_kernel"),
+                        ("device_programs", "gemm_sm90_kernel"),
+                        ("ring_fold", "fold_wgmma_kernel")):
+        sass = _build.gemm_sass(lib, kernel)
         usage = {fn: u for fn, u in _build.ptxas_usage(lib).items()
-                 if "gemm_sm90_kernel" in fn}
+                 if kernel in fn}
         if not sass:
-            raise AssertionError(f"lib{lib}: no gemm_sm90_kernel in its SASS")
+            raise AssertionError(f"lib{lib}: no {kernel} in its SASS")
         for fn, counts in sass.items():
             u = usage.get(fn, {})
             if "spill_stores" not in u:
@@ -224,10 +231,13 @@ def _check_gemm_build(_build):
                 f"{counts['HMMA']}; ptxas {u.get('registers')} registers, "
                 f"{spills} spill bytes")
             if counts["HGMMA"] == 0 or counts["HMMA"] != 0:
-                raise AssertionError(f"lib{lib} {fn} is not a wgmma GEMM: "
+                raise AssertionError(f"lib{lib} {fn} is not a wgmma kernel: "
                                      f"{counts}")
             if spills:
                 raise AssertionError(f"lib{lib} {fn} spills {spills} bytes")
+    if not any("StoreBf16Rounded" in fn
+               for fn in _build.gemm_sass("gemm_bf16")):
+        raise AssertionError("libgemm_bf16: no K2 GEMM (StoreBf16Rounded)")
 
 
 def _kernel_rows(torch, rng, b, length, payload_n):
@@ -416,14 +426,30 @@ def _device_profile(torch, fn, n):
     return wall_us, sorted(rows, key=lambda r: -r[1])
 
 
+def _device_parts(torch, fn, n, kernels, tries=3):
+    """Device ms of one launch of each of `kernels` (name -> a substring of
+    the kernel's name) while fn() runs, from the profiler. Now and then
+    the profiler records none of a run's launches of a kernel that ran
+    (seen on the card with K7, and with K1 and K3 in a step's profile), so
+    a run that misses one is profiled again, up to `tries` runs."""
+    for _ in range(tries):
+        _, rows = _device_profile(torch, fn, n)
+        out = {}
+        for part, kname in kernels.items():
+            us = [r[1] / r[2] for r in rows if kname in r[0]]
+            if us:
+                out[part] = us[0] / 1e3
+        if len(out) == len(kernels):
+            return out
+    missing = sorted(k for p, k in kernels.items() if p not in out)
+    raise AssertionError(f"the profiler saw no {', '.join(missing)} in "
+                         f"{tries} runs")
+
+
 def _kernel_device_ms(torch, fn, n, kernel="row_transform_kernel"):
     """Device time of one launch of `kernel`, from the profiler (the
     card's own clock, without host launch overhead)."""
-    _, rows = _device_profile(torch, fn, n)
-    us = [r[1] / r[2] for r in rows if kernel in r[0]]
-    if not us:
-        raise AssertionError(f"the profiler saw no {kernel}")
-    return us[0] / 1e3
+    return _device_parts(torch, fn, n, {"ms": kernel})["ms"]
 
 
 def phase_profile(torch, dev):
@@ -524,8 +550,9 @@ def phase_gemm(torch, dev):
         y, xb, wtb = gemm.matmul_bf16_f32_packed(x, w)
         yp = gemm.matmul_bf16_f32_reference(x, w)
         xbp, wtbp = gemm.pack_reference(x, w)
-        g = gemm.dw_f32_bf16(x, dy)
+        g, at, bt = gemm.dw_f32_bf16_packed(x, dy)
         gp = gemm.dw_reference(x, dy)
+        atp, btp = gemm.dw_pack_reference(x, dy)
         torch.cuda.synchronize()
         k1_err = float((y - yp).abs().max())
         k1_ok = k1_err <= 1e-4 * float(yp.abs().max())
@@ -534,22 +561,28 @@ def phase_gemm(torch, dev):
             exact = (x.bfloat16().double().T @ dy.double()).bfloat16()
         k2_exact = float((g.bfloat16() == exact).double().mean())
         p2_exact = float((gp.bfloat16() == exact).double().mean())
-        # K1's pack against its plain version: the same bf16 bits, the
-        # same padded shape.
+        # K1's and K2's packs against their plain versions: the same bf16
+        # bits, the same padded shapes.
         pack_ok = torch.equal(xb, xbp) and torch.equal(wtb, wtbp)
-        if not (k1_ok and k2_ok and pack_ok):
+        dw_pack_ok = (torch.equal(at.view(torch.int16), atp.view(torch.int16))
+                      and torch.equal(bt.view(torch.int16),
+                                      btp.view(torch.int16)))
+        if not (k1_ok and k2_ok and pack_ok and dw_pack_ok):
             raise AssertionError(
                 f"GEMM kernels at (M,K,N)={(m, k, n)}: K1 err {k1_err} "
                 f"(ok {k1_ok}), pack equal to its plain version {pack_ok} "
                 f"(shapes {tuple(xb.shape)}, {tuple(wtb.shape)} against "
                 f"{tuple(xbp.shape)}, {tuple(wtbp.shape)}); K2 err "
                 f"{k2_err}, {k2_beyond} beyond 1 ulp, max {k2_ulps:.2f} ulp "
-                f"(ok {k2_ok})")
+                f"(ok {k2_ok}), pack equal to its plain version {dw_pack_ok}"
+                f" (shapes {tuple(at.shape)}, {tuple(bt.shape)} against "
+                f"{tuple(atp.shape)}, {tuple(btp.shape)})")
         if (m, k, n) in GEMM_CHECKS:
             say(f"K1, K2 (M,K,N)={(m, k, n)}: K1 max|k-p| {k1_err:.3g} <= "
                 f"1e-4*max|p|, pack bit-equal to its plain version; K2 "
                 f"max|k-p| {k2_err:.3g}, {k2_beyond} beyond "
-                f"1 bf16 ulp (max {k2_ulps:.2f} ulp)")
+                f"1 bf16 ulp (max {k2_ulps:.2f} ulp), pack bit-equal to its "
+                f"plain version")
             continue
         big = m * n * k > 1e9
         iters = 10 if big else 200
@@ -564,9 +597,11 @@ def phase_gemm(torch, dev):
                  lambda: gemm.matmul_bf16_f32_reference(x, w),
                  lambda: torch.mm(xb, wb, out_dtype=torch.float32),
                  BF16_TC_FLOPS, 4 * (m * k + k * n + m * n)),
+                # K2's design does 3 bf16 passes (dy's exact split terms).
                 ("dw_f32_bf16", lambda: gemm.dw_f32_bf16(x, dy),
                  lambda: gemm.dw_reference(x, dy),
-                 lambda: x.T @ dy, F32_FLOPS, 4 * (m * k + m * n + k * n))):
+                 lambda: x.T @ dy, BF16_TC_FLOPS / 3,
+                 4 * (m * k + m * n + k * n))):
             with ieee_fp32():  # the f32 products below run with TF32 off
                 lib_ms = _cuda_ms(torch, lib, iters)
                 plain_ms = _cuda_ms(torch, plain, iters)
@@ -590,19 +625,24 @@ def phase_gemm(torch, dev):
         with ieee_fp32():
             k1["library_f32_ms"] = _cuda_ms(torch, lambda: x @ w, iters)
         # K1 in parts, on the card's own clock: the pack and the GEMM.
-        _, rows = _device_profile(
-            torch, lambda: gemm.matmul_bf16_f32(x, w), iters)
-        for part, kname in (("pack_ms", "pack_operands_kernel"),
-                            ("gemm_ms", "gemm_sm90_kernel")):
-            us = [r[1] / r[2] for r in rows if kname in r[0]]
-            if not us:
-                raise AssertionError(f"the profiler saw no {kname}")
-            k1[part] = us[0] / 1e3
+        k1.update(_device_parts(
+            torch, lambda: gemm.matmul_bf16_f32(x, w), iters,
+            {"pack_ms": "pack_operands_kernel",
+             "gemm_ms": "gemm_sm90_kernel"}))
         k1["gemm_tflops"] = flops / k1["gemm_ms"] / 1e9
         pack_bytes = (m * k + k * n) * 4 + (xb.numel() + wtb.numel()) * 2
         k1["pack_bound_ms"] = pack_bytes / HBM_BYTES_PER_S * 1e3
         out[(m, k, n)] = rec
         k2 = rec["dw_f32_bf16"]
+        # K2 in parts: the pack and the split-term GEMM.
+        k2.update(_device_parts(
+            torch, lambda: gemm.dw_f32_bf16(x, dy), iters,
+            {"pack_ms": "dw_pack_kernel", "gemm_ms": "StoreBf16Rounded"}))
+        k2["gemm_tflops"] = 3 * flops / k2["gemm_ms"] / 1e9
+        k2["pack_bound_ms"] = ((m * k + m * n) * 4 + (at.numel() + bt.numel())
+                               * 2) / HBM_BYTES_PER_S * 1e3
+        k2["fma_bound_ms"] = flops / F32_FLOPS * 1e3
+        k2["design"] = "split_wgmma"
         say(f"K1 matmul_bf16_f32 (M,K,N)={(m, k, n)}: max|k-p| {k1_err:.3g}"
             f" <= 1e-4*max|p|; {k1['ms'] * 1e3:.1f} us "
             f"({k1['tflops']:.1f} TFLOP/s) vs bound "
@@ -620,12 +660,16 @@ def phase_gemm(torch, dev):
             f"{k2_ulps:.2f} ulp; f32 summation order); equal to the exact "
             f"sum rounded once: kernel {k2_exact * 100:.2f}%, plain "
             f"{p2_exact * 100:.2f}%; {k2['ms'] * 1e3:.1f} us "
-            f"({k2['tflops']:.1f} TFLOP/s) vs bound "
-            f"{k2['bound_ms'] * 1e3:.2f} us (f32 CUDA cores) = "
-            f"{k2['bound_ms'] / k2['ms'] * 100:.1f}% (bf16 tensor-core "
-            f"figure {flops / BF16_TC_FLOPS * 1e6:.2f} us); plain "
-            f"{k2['plain_ms'] * 1e3:.1f} us; torch.matmul f32 "
-            f"{k2['library_ms'] * 1e3:.1f} us [{dev['smi']}]")
+            f"({k2['tflops']:.1f} TFLOP/s of the function) vs bound "
+            f"{k2['bound_ms'] * 1e3:.2f} us ({k2['bound_by']}, 3 bf16 "
+            f"tensor-core passes) = {k2['bound_ms'] / k2['ms'] * 100:.1f}% "
+            f"(f32 FMA figure {k2['fma_bound_ms'] * 1e3:.2f} us); in parts "
+            f"on the device: pack {k2['pack_ms'] * 1e3:.1f} us (bound "
+            f"{k2['pack_bound_ms'] * 1e3:.1f} us, bytes), GEMM "
+            f"{k2['gemm_ms'] * 1e3:.1f} us ({k2['gemm_tflops']:.1f} TFLOP/s "
+            f"over 3 passes); plain {k2['plain_ms'] * 1e3:.1f} us; "
+            f"torch.matmul f32 {k2['library_ms'] * 1e3:.1f} us "
+            f"[{dev['smi']}]")
     return out
 
 
@@ -653,7 +697,10 @@ def phase_fold(torch, dev):
 
     lq, lk, d, folds = FOLD
     rng = np.random.default_rng(SEED + 11)
-    flops = 4.0 * lq * lk * d  # per fold
+    flops = 4.0 * lq * lk * d  # per fold, the function's two products
+    # The split-term design's bf16 passes of 2 lq lk d: 6 + 6 for f32
+    # inputs, 1 + 3 for bf16 (csrc/ring_fold.cu).
+    passes = {torch.float32: 12, torch.bfloat16: 4}
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, ks, vs = _fold_inputs(torch, rng, dtype)
@@ -666,6 +713,19 @@ def phase_fold(torch, dev):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        # The fused last fold: o / l in q's dtype, written by the kernel.
+        fin = rf.fold_(q, ks[0], vs[0], *_carry(torch, lq, d), final=True)
+        fin_want = rf.fold_reference(q, ks[0], vs[0], *_carry(torch, lq, d),
+                                     final=True)
+        fin_diff = (fin.double() - fin_want.double()).abs()
+        fin_err = float(fin_diff.max())
+        # Both round o / l, within 2e-5 of each other in f32, to q's dtype
+        # once: a bf16 output may differ by one more bf16 ulp.
+        ftol = 2e-5 + 2e-5 * fin_want.double().abs()
+        if dtype == torch.bfloat16:
+            ftol = ftol + _bf16_ulp(torch, fin_want.float())
+        if fin.dtype != dtype or not bool((fin_diff <= ftol).all()):
+            raise AssertionError(f"final fold {dtype}: max abs err {fin_err}")
         # Timing: back-to-back folds into one carry.
         carry = _carry(torch, lq, d)
         ms = _cuda_ms(torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 10)
@@ -680,17 +740,34 @@ def phase_fold(torch, dev):
                 qb, ks[0][None, None], vs[0][None, None]), 5)
         nbytes = (q.numel() + 2 * ks[0].numel()) * q.element_size() \
             + 2 * 4 * (2 * lq + lq * d)
-        bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        op_ms = passes[dtype] * flops / 2 / BF16_TC_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(op_ms, bytes_ms)
+        fma_ms = flops / F32_FLOPS * 1e3
+        parts = _device_parts(
+            torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 5,
+            {"pack_ms": "fold_pack_kernel", "fold_ms": "fold_wgmma_kernel",
+             "combine_ms": "fold_combine_kernel"})
         name = str(dtype).replace("torch.", "")
         out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_one,
                      "library_32k_ms": sdpa_32k, "bound_ms": bound_ms,
-                     "max_abs_err": err, "tflops": flops / ms / 1e9}
+                     "bound_by": ("operations" if op_ms >= bytes_ms
+                                  else "bytes"),
+                     "fma_bound_ms": fma_ms, "passes": passes[dtype],
+                     "max_abs_err": err, "final_max_abs_err": fin_err,
+                     "tflops": flops / ms / 1e9, **parts}
         say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)} x{folds} carried "
-            f"folds: o/l within 2e-5 (max abs err {err:.3g}); one fold "
-            f"{ms * 1e3:.0f} us ({flops / ms / 1e9:.1f} TFLOP/s) vs bound "
-            f"{bound_ms * 1e3:.0f} us (operations, f32 CUDA cores) = "
-            f"{bound_ms / ms * 100:.1f}% (bf16 tensor-core figure "
-            f"{flops / BF16_TC_FLOPS * 1e6:.1f} us); plain "
+            f"folds: o/l within 2e-5 (max abs err {err:.3g}); the fused "
+            f"last fold's {name} o/l within 2e-5"
+            f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''} (max abs "
+            f"err {fin_err:.3g}); one fold {ms * 1e3:.0f} us "
+            f"({flops / ms / 1e9:.1f} TFLOP/s of the function) vs bound "
+            f"{bound_ms * 1e3:.1f} us ({passes[dtype]} bf16 tensor-core "
+            f"passes) = {bound_ms / ms * 100:.1f}% (f32 FMA figure "
+            f"{fma_ms * 1e3:.1f} us); in parts on the device: pack "
+            f"{parts['pack_ms'] * 1e3:.1f} us, fold "
+            f"{parts['fold_ms'] * 1e3:.1f} us, combine "
+            f"{parts['combine_ms'] * 1e3:.1f} us; plain "
             f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention over "
             f"{lk} keys {sdpa_one * 1e3:.0f} us, over {folds * lk} keys "
             f"{sdpa_32k * 1e3:.0f} us (vs {folds} folds "
@@ -711,8 +788,9 @@ def phase_fold(torch, dev):
             torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
             torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
             say(f"K3 ring_fold {str(dtype)[6:]} (lq,lk,d)={(wlq, wlk, wd)} "
-                f"x2 carried folds, {-(-wd // rf.HEAD_CHUNK)} head-dim "
-                f"chunks: o/l within 2e-5 (max abs err "
+                f"x2 carried folds, the chunked f32 FMA kernel over "
+                f"{-(-wd // rf.HEAD_CHUNK)} head-dim chunks: o/l within 2e-5 "
+                f"(max abs err "
                 f"{float((got - want).abs().max()):.3g})")
     return out
 
@@ -1848,6 +1926,10 @@ def main():
                 "design": "tma_wgmma",
                 "library_cast_ms": rec["library_cast_ms"],
                 "pack_ms": rec["pack_ms"], "gemm_ms": rec["gemm_ms"]})
+        else:
+            kernels[-1].update({
+                "design": rec["design"], "fma_bound_ms": rec["fma_bound_ms"],
+                "pack_ms": rec["pack_ms"], "gemm_ms": rec["gemm_ms"]})
     f32 = fold_recs["float32"]
     kernels.append({
         "name": "ring_fold", "route": "cuda",
@@ -1856,8 +1938,9 @@ def main():
         "launches": counts["ring_fold"], "match": True,
         "max_abs_err": max(r["max_abs_err"] for r in fold_recs.values()),
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": "operations",
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"], "shape": list(FOLD[:3]),
+        "design": "split_wgmma", "fma_bound_ms": f32["fma_bound_ms"],
         "dtypes": fold_recs,
     })
     # Path 3's kernels: launches are the runtime's own counts over path 3a

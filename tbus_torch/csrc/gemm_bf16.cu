@@ -28,19 +28,36 @@
 // converted as it filled the ring would save the pack's bytes: later work.
 //
 // K2, tbus_dw_f32_bf16: dW [K, N] = bf16_rn(sum_m bf16(x[m, k]) * dy[m, n])
-// with dy in full f32. A bf16 dy on the tensor cores would be another
-// function (the reference does not round dy), so K2 runs on the CUDA cores:
-// f32 fused multiply-adds, summed over m in order 0..M-1, rounded to bf16
-// once in the epilogue. Bound: operations, 2*M*N*K flops at the f32 rate
-// (67 TFLOP/s outside the tensor cores): 2.05 ms at 4096^3. Design: the
-// classic register-blocked SGEMM: one 256-thread block per 128 x 128 tile
-// of dW, each thread an 8 x 8 sub-tile, the m loop staging 8 rows of x and
-// dy in shared memory per step (16-byte loads, two buffers: each step's
-// global loads are issued before the previous step's sums).
+// with dy in full f32. A bf16 dy would be another function (the reference
+// does not round dy), but dy splits exactly into three bf16 terms,
+// dy = hi + mid + lo (gemm_sm90.cuh split3), and each product of two bf16
+// values is exact in f32. So dW is exactly one bf16 GEMM with an inner
+// dimension of 3M on the tensor cores, summed in f32 and rounded to bf16
+// once. Bound: operations, 3 * 2*M*N*K flops at 989 TFLOP/s (bf16 tensor
+// cores, H100 SXM): 0.417 ms at 4096^3, against 2.05 ms for the same
+// function on the CUDA cores' f32 FMA (67 TFLOP/s), which is what the
+// reference's f32 arithmetic would otherwise cost; its bytes (x, dy and dW
+// once, f32) take 0.060 ms. Design: two launches. (1) dw_pack_kernel,
+// memory-bound, reads x and dy once through 64 x 64 shared-memory tiles and
+// writes the GEMM's K-major operands: at [Kp, Mq] = bf16(x)^T and
+// bt [Np, 3 Mq] = [lo^T | mid^T | hi^T], zero-padded (Kp, Np to 256, Mq to
+// 64: tbus_gemm_padded(K, M, N)); 256 MiB at 4096^3, 0.080 ms at
+// 3.35 TB/s. (2) One gemm_sm90.cuh launch, the GEMM's M = K, N = N and
+// depth 3 Mq, with A's k coordinate wrapping every Mq (A is read three
+// times, never copied), and an epilogue that rounds each f32 sum to bf16
+// and stores it as f32, masked to (K, N). The smallest terms come first
+// along k: their sums build up while the accumulator is small, so the
+// tensor core's f32 additions lose less of them than if hi came first.
+// Numerics: the products are exact; the sum differs from the plain
+// version's f32 sum by its order and the tensor core's f32 additions
+// (held to the same tolerance as a sum in another order), and the split
+// is exact except where dy's low bits fall below bf16's least subnormal
+// (|dy| < 2^-110), where lo is off by at most 2^-134 per element.
 //
-// Ragged M, N, K are masked (zero-filled loads, guarded stores). Interface:
-// plain C, loaded with ctypes. dtype codes: 0 = f32, 1 = bf16. Launches on
-// the given stream, does not synchronise, returns cudaGetLastError().
+// Ragged M, N, K are zero-padded by the packs and masked by the
+// epilogues. Interface: plain C, loaded with ctypes. dtype codes: 0 = f32,
+// 1 = bf16. Launches on the given stream, does not synchronise, returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +66,6 @@
 #include "gemm_sm90.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // ---- K1 ----
 
@@ -62,11 +77,7 @@ __device__ __forceinline__ float as_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Two values as a bf16x2 word, the first in the low half.
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using sm90::pack2;
 
 // 8 consecutive elements of src (the first `valid` real, the rest zero) as
 // 4 bf16x2 words; 16-byte vector loads when whole and aligned.
@@ -169,118 +180,73 @@ struct StoreF32 {
 
 // ---- K2 ----
 
-constexpr int kTK = 128, kTN = 128, kTM = 8;
-
-__device__ __forceinline__ float bf16_value(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float bf16_value(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// 4 consecutive values from src (the first `valid` real, the rest 0) as
-// f32; one 16-byte load when whole and aligned.
-__device__ __forceinline__ float4 load4(const float* src, int valid) {
-  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    return *reinterpret_cast<const float4*>(src);
+// K2's epilogue: dW [K][N] = f32(bf16_rn(sum)), masked.
+struct StoreBf16Rounded {
+  float* dw;
+  int K, N;
+  __device__ __forceinline__ void operator()(int r, int c, float v0,
+                                             float v1) const {
+    StoreF32{dw, K, N}(r, c, __bfloat162float(__float2bfloat16_rn(v0)),
+                       __bfloat162float(__float2bfloat16_rn(v1)));
   }
-  return make_float4(valid > 0 ? src[0] : 0.f, valid > 1 ? src[1] : 0.f,
-                     valid > 2 ? src[2] : 0.f, valid > 3 ? src[3] : 0.f);
+};
+
+// Eight values as four bf16x2 words (each value already a bf16 value,
+// so the rounding is exact).
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  return make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+                    pack2(v[6], v[7]));
 }
 
-// The same, each value rounded to bf16 (x's operand).
-__device__ __forceinline__ float4 load4_bf16(const float* src, int valid) {
-  const float4 v = load4(src, valid);
-  return make_float4(bf16_value(v.x), bf16_value(v.y), bf16_value(v.z),
-                     bf16_value(v.w));
-}
-__device__ __forceinline__ float4 load4_bf16(const __nv_bfloat16* src,
-                                             int valid) {
-  if (valid >= 4 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
-    const uint2 u = *reinterpret_cast<const uint2*>(src);
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xFFFF0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xFFFF0000u));
+// Blocks [0, a_tiles) write at [Kp][Mq] = bf16(x)^T, one 64 x 64 tile of
+// x each (read along k, written along m); the rest write
+// bt [Np][3 Mq] = the exact split of dy^T, one 64 x 64 tile of dy each
+// (read along n, written along m), lo in columns [0, Mq), mid in
+// [Mq, 2 Mq), hi in [2 Mq, 3 Mq). Padding is zero.
+template <typename TX>
+__global__ void __launch_bounds__(kPackThreads)
+dw_pack_kernel(const TX* __restrict__ x, const float* __restrict__ dy,
+               __nv_bfloat16* __restrict__ at, __nv_bfloat16* __restrict__ bt,
+               int M, int K, int N, long long Mq, long long a_tiles) {
+  __shared__ float tile[kPackTile][kPackTile + 1];  // [m][k or n]
+  const int tid = threadIdx.x;
+  long long t = blockIdx.x;
+  const bool is_a = t < a_tiles;
+  if (!is_a) t -= a_tiles;
+  const long long tiles_m = Mq / kPackTile;
+  const long long m0 = (t % tiles_m) * kPackTile;
+  const long long c0 = (t / tiles_m) * kPackTile;
+  const int j = tid % kPackTile;
+#pragma unroll
+  for (int it = 0; it < kPackTile * kPackTile / kPackThreads; ++it) {
+    const int i = it * (kPackThreads / kPackTile) + tid / kPackTile;
+    const long long m = m0 + i, c = c0 + j;
+    float v = 0.f;
+    if (m < M) {
+      if (is_a && c < K) v = as_float(x[m * K + c]);
+      if (!is_a && c < N) v = dy[m * N + c];
+    }
+    tile[i][j] = v;
   }
-  const __nv_bfloat16 z = __float2bfloat16_rn(0.f);
-  return make_float4(bf16_value(valid > 0 ? src[0] : z),
-                     bf16_value(valid > 1 ? src[1] : z),
-                     bf16_value(valid > 2 ? src[2] : z),
-                     bf16_value(valid > 3 ? src[3] : z));
-}
-
-// Thread t's share of one m step: row t / 32, columns 4 (t % 32) .. +3 of
-// the block's x and dy tiles.
-template <typename TX>
-__device__ __forceinline__ void load_rows(
-    const TX* __restrict__ x, const float* __restrict__ dy, int M, int K,
-    int N, int64_t k0, int64_t n0, int m0, int tid, float4& xa, float4& da) {
-  const int64_t gm = m0 + (tid >> 5), c = (tid & 31) * 4;
-  const bool ok = gm < M;
-  const int64_t xr = K - k0 - c, dr = N - n0 - c;
-  xa = load4_bf16(x + (ok ? gm * K + k0 + c : 0),
-                  ok ? int(xr < 4 ? xr : 4) : 0);
-  da = load4(dy + (ok ? gm * N + n0 + c : 0), ok ? int(dr < 4 ? dr : 4) : 0);
-}
-
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-dw_f32_bf16_kernel(const TX* __restrict__ x, const float* __restrict__ dy,
-                   float* __restrict__ dw, int M, int K, int N) {
-  __shared__ __align__(16) float xs[2][kTM][kTK];  // [m][k]
-  __shared__ __align__(16) float ds[2][kTM][kTN];  // [m][n]
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int lm = tid >> 5, lc = (tid & 31) * 4;
-  const int64_t k0 = int64_t(blockIdx.y) * kTK;
-  const int64_t n0 = int64_t(blockIdx.x) * kTN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float4 xa, da;
-  load_rows(x, dy, M, K, N, k0, n0, 0, tid, xa, da);
-  *reinterpret_cast<float4*>(&xs[0][lm][lc]) = xa;
-  *reinterpret_cast<float4*>(&ds[0][lm][lc]) = da;
   __syncthreads();
-  for (int m0 = 0, cur = 0; m0 < M; m0 += kTM, cur ^= 1) {
-    const bool more = m0 + kTM < M;
-    // The next step's loads are in flight while this one is summed.
-    if (more) load_rows(x, dy, M, K, N, k0, n0, m0 + kTM, tid, xa, da);
 #pragma unroll
-    for (int m = 0; m < kTM; ++m) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[cur][m][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&xs[cur][m][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ds[cur][m][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&ds[cur][m][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  for (int h = 0; h < kPackTile * kPackTile / 8 / kPackThreads; ++h) {
+    const int q = tid + h * kPackThreads;
+    const int r = q / 8, mc = (q % 8) * 8;
+    float v[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int e = 0; e < 8; ++e) v[e] = tile[mc + e][r];
+    if (is_a) {
+      *reinterpret_cast<uint4*>(at + (c0 + r) * Mq + m0 + mc) = pack8(v);
+      continue;
     }
-    if (more) {
-      *reinterpret_cast<float4*>(&xs[cur ^ 1][lm][lc]) = xa;
-      *reinterpret_cast<float4*>(&ds[cur ^ 1][lm][lc]) = da;
-    }
-    __syncthreads();
-  }
-
+    float hi[8], mid[8], lo[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t k = k0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (k >= K) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) dw[k * N + n] = bf16_value(acc[i][j]);
-    }
+    for (int e = 0; e < 8; ++e) sm90::split3(v[e], hi[e], mid[e], lo[e]);
+    __nv_bfloat16* row = bt + (c0 + r) * 3 * Mq + m0 + mc;
+    *reinterpret_cast<uint4*>(row) = pack8(lo);
+    *reinterpret_cast<uint4*>(row + Mq) = pack8(mid);
+    *reinterpret_cast<uint4*>(row + 2 * Mq) = pack8(hi);
   }
 }
 
@@ -347,21 +313,46 @@ extern "C" int tbus_matmul_bf16_f32(const void* x, const void* w, void* y,
                         StoreF32{static_cast<float*>(y), M, N}, s));
 }
 
-extern "C" int tbus_dw_f32_bf16(const void* x, const void* dy, void* dw, int M,
-                                int K, int N, int x_dtype, void* stream) {
-  if (K <= 0 || N <= 0) return int(cudaSuccess);
+// K2. at: bf16 [Kp][Mq] and bt: bf16 [Np][3 Mq] scratch the caller gives,
+// shaped as tbus_gemm_padded(K, M, N) says ({Kp, Mq, Np}); both 16-byte
+// aligned and written in full, padding zeroed. One pack, then one GEMM
+// whose k runs over bt's 3 Mq columns while A's wraps over at's Mq.
+extern "C" int tbus_dw_f32_bf16(const void* x, const void* dy, void* dw,
+                                void* at, void* bt, int M, int K, int N,
+                                long long Kp, long long Mq, long long Np,
+                                int x_dtype, void* stream) {
+  if (M < 0 || K < 0 || N < 0 || !sm90::tiles(Kp, Np, 3 * Mq) || Kp < K ||
+      Mq < M || Np < N || Kp % kPackTile != 0 || Np % kPackTile != 0) {
+    return int(cudaErrorInvalidValue);
+  }
+  if (K == 0 || N == 0) return int(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(unsigned((N + kTN - 1) / kTN), unsigned((K + kTK - 1) / kTK));
+  auto* a = static_cast<__nv_bfloat16*>(at);
+  auto* b = static_cast<__nv_bfloat16*>(bt);
+  const long long tiles_m = Mq / kPackTile;
+  const long long a_tiles = tiles_m * (Kp / kPackTile);
+  const unsigned blocks = unsigned(a_tiles + tiles_m * (Np / kPackTile));
   if (x_dtype == 0) {
-    dw_f32_bf16_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(dw), M, K, N);
+    dw_pack_kernel<float><<<blocks, kPackThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), a, b, M,
+        K, N, Mq, a_tiles);
   } else if (x_dtype == 1) {
-    dw_f32_bf16_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    dw_pack_kernel<__nv_bfloat16><<<blocks, kPackThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dy),
-        static_cast<float*>(dw), M, K, N);
+        a, b, M, K, N, Mq, a_tiles);
   } else {
     return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  CUtensorMap a_map, b_map;
+  e = sm90::encode_kmajor_bf16(&a_map, at, Kp, Mq, sm90::kBM);
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&b_map, bt, Np, 3 * Mq,
+                                 sm90::kBN / sm90::kCluster);
+  }
+  if (e != cudaSuccess) return int(e);
+  return int(sm90::gemm(a_map, b_map, Kp, Np, 3 * Mq,
+                        StoreBf16Rounded{static_cast<float*>(dw), K, N}, s,
+                        Mq));
 }

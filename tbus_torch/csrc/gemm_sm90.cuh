@@ -1,7 +1,13 @@
-// The port's one Hopper GEMM mainloop, shared by K1 (gemm_bf16.cu
-// tbus_matmul_bf16_f32) and K6 (device_programs.cu tbus_dotbench):
+// The port's one Hopper GEMM mainloop, shared by K1 and K2 (gemm_bf16.cu
+// tbus_matmul_bf16_f32, tbus_dw_f32_bf16) and K6 (device_programs.cu
+// tbus_dotbench), with the TMA, mbarrier and wgmma pieces that K3
+// (ring_fold.cu) builds on, and the exact bf16 split of an f32 value:
 //
 //   C[Mp, Np] = A[Mp, Kp] . B[Np, Kp]^T
+//
+// or, where A is shorter than B along k (K2: A is Ka deep, B is Kp = 3 Ka
+// deep), C = sum over the Kp / Ka slices B_s of A . B_s^T: the producer's
+// k coordinate into A wraps every Ka.
 //
 // A and B bf16 and K-major (k contiguous) in device memory, every product
 // exact on the tensor cores and summed in f32, the f32 accumulator handed
@@ -63,6 +69,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -147,6 +154,37 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst,
       : "memory");
 }
 
+// Two values as a bf16x2 word (round to nearest even), the first in the
+// low half.
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The exact split of an f32 value a into three bf16 terms (as floats):
+// hi = bf16_rn(a), mid = bf16_rn(a - hi), lo = bf16_rn(a - hi - mid).
+// Both differences are exact in f32 (no -ftz: subnormals are kept), and
+// each term takes the next 8 significant bits, so hi + mid + lo == a
+// whenever lo's last bit is above bf16's least subnormal, 2^-133: for
+// every finite a with |a| >= 2^-110, and for every a whose low bits
+// below 2^-133 are zero. Elsewhere lo rounds as a bf16 subnormal, off by
+// at most 2^-134. A finite a above bf16's largest finite value (where
+// bf16_rn gives inf) takes hi = bf16_rz(a), so the split stays exact;
+// +-inf splits to (+-inf, 0, 0) and NaN to (NaN, 0, 0).
+__device__ __forceinline__ void split3(float a, float& hi, float& mid,
+                                       float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(a));
+  if (isinf(hi) && !isinf(a)) hi = __bfloat162float(__float2bfloat16_rz(a));
+  if (!isfinite(hi)) {
+    hi = a;
+    mid = lo = 0.f;
+    return;
+  }
+  const float r = a - hi;
+  mid = __bfloat162float(__float2bfloat16_rn(r));
+  lo = __bfloat162float(__float2bfloat16_rn(r - mid));
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.aligned;\n"
                "barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -229,7 +267,7 @@ template <class Epi>
 __global__ void __cluster_dims__(1, kCluster, 1) __launch_bounds__(kThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap b_map, int k_tiles,
-                 Epi epi) {
+                 int a_k_tiles, Epi epi) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + kStages * kStageBytes;
@@ -264,10 +302,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
       uint32_t ph = 0;
       const uint32_t half = rank * uint32_t(kBBytes / kCluster);
       const int b_row = n0 + int(rank) * (kBN / kCluster);
-      for (int kt = 0; kt < k_tiles; ++kt) {
+      for (int kt = 0, ka = 0; kt < k_tiles; ++kt) {
         mbar_wait(empty(s), ph ^ 1);
         mbar_expect_tx(full(s), kStageBytes);
-        tma_load(a_stage(s), &a_map, full(s), kt * kBK, m0);
+        tma_load(a_stage(s), &a_map, full(s), ka * kBK, m0);
+        if (++ka == a_k_tiles) ka = 0;
         tma_load_multicast(b_stage(s) + half, &b_map, full(s), kt * kBK,
                            b_row, uint16_t((1u << kCluster) - 1));
         if (++s == kStages) {
@@ -398,21 +437,25 @@ inline bool tiles(long long mp, long long np, long long kp) {
          np <= 0x7fffffffLL && kp <= 0x7fffffffLL;
 }
 
-// Launches C = A . B^T with a_map over A [mp][kp] (boxes of kBM rows) and
+// Launches C = A . B^T with a_map over A [mp][ka] (boxes of kBM rows) and
 // b_map over B [np][kp] (boxes of kBN / kCluster rows) on stream; the
-// epilogue stores.
+// epilogue stores. ka = 0 means kp; otherwise kp is a multiple of ka and
+// A's k coordinate wraps every ka.
 template <class Epi>
 cudaError_t gemm(const CUtensorMap& a_map, const CUtensorMap& b_map,
                  long long mp, long long np, long long kp, const Epi& epi,
-                 cudaStream_t stream) {
-  if (!tiles(mp, np, kp)) return cudaErrorInvalidValue;
+                 cudaStream_t stream, long long ka = 0) {
+  if (ka == 0) ka = kp;
+  if (!tiles(mp, np, kp) || ka <= 0 || ka % kBK != 0 || kp % ka != 0) {
+    return cudaErrorInvalidValue;
+  }
   const cudaError_t e = cudaFuncSetAttribute(
       gemm_sm90_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(unsigned(np / kBN), unsigned(mp / kBM));
   gemm_sm90_kernel<Epi><<<grid, kThreads, kSmemBytes, stream>>>(
-      a_map, b_map, int(kp / kBK), epi);
+      a_map, b_map, int(kp / kBK), int(ka / kBK), epi);
   return cudaGetLastError();
 }
 

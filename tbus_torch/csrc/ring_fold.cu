@@ -10,76 +10,756 @@
 //   l' = l a + rowsum exp(s - m')  o' = o a + exp(s - m') v
 //
 // The carry is updated in place (the reference is pure; the wrapper says
-// so). The first fold starts from m = -inf: a = exp(-inf) = 0 there, never
-// NaN, because m' is finite once a row has seen one finite score.
+// so). With `final` set, the fold also ends the ring (the reference's
+// :158): it writes out = (o' / l') in q's dtype instead of o', and still
+// writes m' and l'. The first fold starts from m = -inf: a = exp(-inf) = 0
+// there, never NaN, because m' is finite once a row has seen one finite
+// score.
 //
-// Bound: operations. 4 * lq * lk * d flops (two products), all in f32 on the
-// CUDA cores, since the reference computes both products in f32: at 67
-// TFLOP/s, 0.513 ms for lq = lk = 8192, d = 128 (bf16 tensor cores would
-// make it 0.035 ms, but not in f32). Bytes are small beside that (q, k, v
-// and the carry, each once). Design: one 256-thread block per 64 query rows
-// and per chunk of up to 128 head-dim columns of o loops over the block's
-// lk in tiles of 64 keys, with the online rescale inside the loop, so the
-// scores never leave the SM: each tile's k (stored transposed) and v go to
-// shared memory, each thread computes a 4 x 4 patch of s from float4
-// shared loads, the row max and row sum are reduced across the 16 threads
-// of a row group with warp shuffles, p goes to shared memory, and each
-// thread updates its 4 rows x D/16 columns of o in registers. The chunk
-// width D is 32, 64 or 128 (d padded up with zeros, which adds nothing to
-// s and gives columns of o that are never written back). A head dim over
-// 128 takes ceil(d / 128) chunks: s sums q k^T over every chunk of d in
-// shared memory, so each chunk's block recomputes all of s (at d = 256 the
-// kernel does 1.5x the flops of the bound), and its m and l go to separate
-// outputs, written by the chunk-0 block, since the other chunks' blocks
-// still read the carry's old m. Rows past lq and keys past lk are masked
-// (a masked score is -inf).
+// d <= 128: products on the tensor cores over exact split terms.
+// ---------------------------------------------------------------
+// Both products are f32 in the reference. An f32 value splits exactly into
+// three bf16 terms (gemm_sm90.cuh split3: hi + mid + lo == a, 24 bits),
+// and a product of two bf16 values is exact in f32, so
+//   s   = sum over i + j <= 2 of q_i . k_j^T   (6 passes; the 3 dropped
+//         cross terms are ~2^-26 of |q||k|, below f32's own rounding)
+//   p.v = sum over i + j <= 2 of p_i . v_j     (6 passes)
+// with bf16 inputs one term each: s in 1 pass, p.v in 3 (only the f32 p
+// is split). Each pass is a bf16 wgmma summed in f32; the smallest cross
+// terms go first, while the accumulator is small.
+// Bound: operations. 12 passes of 2 * lq * lk * d flops at 989 TFLOP/s
+// (bf16 tensor cores, H100 SXM) for f32 inputs, 0.208 ms at lq = lk =
+// 8192, d = 128 (the same function on the CUDA cores' f32 FMA, 67 TFLOP/s,
+// 0.513 ms); 4 passes for bf16 inputs, 0.069 ms. Bytes (q, k, v and the
+// carry, each once) take ~0.010 ms; the exps ~0.02 ms on the SFUs.
+// Design, three launches:
+// (1) fold_pack_kernel, memory-bound: q, k as qs [NT][lq_p][128], ks
+//     [NT][lk_p][128] and v transposed as vt [NT][128][lk_p], NT terms
+//     each (3 for f32, 1 for bf16), bf16, zero-padded: d to 128 (the
+//     zeros add nothing to s and give columns of o never written), lq_p
+//     to 128 rows, lk_p to 64 keys. vt makes v^T a K-major operand, as
+//     the mainloop's descriptors take it.
+// (2) fold_wgmma_kernel, one 384-thread block per 128 query rows and per
+//     split of the key tiles (the splits fill the SMs: lq = 8192 gives 64
+//     row blocks, so keys split in 2 and 128 blocks run). Warpgroup 0 is
+//     the producer (setmaxnreg.dec 40): one thread loads the block's q
+//     once and then, per tile of 64 keys, k's and v^T's terms by TMA
+//     (64 x 64 boxes, 128-byte swizzle) into rings of kStages stages with
+//     full and empty mbarriers, as gemm_sm90.cuh does. Warpgroups 1 and 2
+//     (setmaxnreg.inc 232) each own 64 query rows. Per tile: s by
+//     wgmma m64n64k16 (q and k from shared memory, 32 f32 a thread);
+//     scale, mask, row max across the row's 4 threads by shuffles, the
+//     online rescale, p = exp(s - m') split in registers into 3 bf16
+//     terms (split3_bits: integer arithmetic, no conversion
+//     instructions) that are wgmma's A fragments as they lie (the
+//     accumulator of m64nNk16 is the A fragment of the next product:
+//     FlashAttention-3's arrangement); p.v by wgmma m64n128k16 with A
+//     from registers into a fresh tile accumulator, then o = o a + o_tile
+//     by f32 FMA. So the tensor core sums at most one tile's 24 passes
+//     before the result is rounded into o, never the block's keys. The two
+//     warpgroups take turns to issue s (two named barriers,
+//     FlashAttention-3's ping-pong), so one's softmax runs while the
+//     other's products do.
+//     Shared memory, f32 inputs at d = 128 (three terms): q for 128 rows
+//     is 96 KiB, a tile's k and v^T 48 KiB each, so one stage of each
+//     (192 KiB in all of the 227 KiB) and the split's parallelism do the
+//     overlapping: k for the next tile loads while this tile's p.v runs,
+//     v while the next s runs. bf16 inputs (one term) take 3 stages.
+//     Registers per consumer thread: o and o_tile 64 each, s 32, p's
+//     fragments 48.
+// (3) fold_combine_kernel, one warp per row: each split's (m, l, o), all
+//     relative to its own running max, merged with the carry:
+//     m' = max(m, m_s), l' = l e^(m - m') + sum l_s e^(m_s - m'),
+//     o' = o e^(m - m') + sum o_s e^(m_s - m'); with `final`, out = o' / l'.
+// Keys past lk score -inf; padded rows are never written. Numerics: the
+// products of the split terms are exact; the sums differ from the plain
+// version's in order and in the tensor core's f32 additions, the rescale
+// happens per tile and per split, and exp is expf in both.
+//
+// d > 128: the chunked f32 FMA kernel (ring_fold_kernel), kept for heads
+// wider than the wgmma kernel's tile. One 256-thread block per 64 query
+// rows and per chunk of 128 head-dim columns of o loops over lk in tiles of
+// 64 keys with the online rescale inside the loop; each chunk's block
+// recomputes all of s over every chunk of d in shared memory (at d = 256
+// 1.5x the flops of the bound), and its m and l go to separate outputs,
+// written by the chunk-0 block, since the other chunks' blocks still read
+// the carry's old m. Bound: 4 * lq * lk * d flops at 67 TFLOP/s (f32).
 //
 // Interface: plain C, loaded with ctypes. dtype codes: 0 = f32, 1 = bf16;
-// any d >= 1. m_out and l_out may alias m and l when d <= 128 and must not
-// otherwise. Launches on the given stream, does not synchronise, returns
-// cudaGetLastError().
+// any d >= 1. tbus_ring_fold_scratch_bytes says how much device scratch
+// the call needs (0 for d > 128). m_out and l_out may alias m and l when
+// d <= 128 and must not otherwise. Launches on the given stream, does not
+// synchronise, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "gemm_sm90.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64, kBK = 64;
-constexpr int kLdq = kBQ + 4, kLdk = kBK + 4;  // padded rows, 16-byte aligned
+namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <int D>
-constexpr int smem_floats() {
-  return D * kLdq + D * kLdk + kBK * D + kBK * kLdq;
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-// Loads rows [r0g, r0g + rows) of x, columns [c0g, c0g + D), transposed
-// into dst [D][ld], zero past the rows' end n and the columns' end d.
-template <int D, int ROWS, typename T>
+// ---- d <= 128: split terms on wgmma ----
+
+constexpr int kRows = 128;        // query rows per block
+constexpr int kKeys = 64;         // keys per tile
+constexpr int kD = 128;           // the head dim, d zero-padded
+constexpr int kDB = kD / 64;      // TMA boxes across the head dim
+constexpr int kBox = 64 * 128;    // one TMA box: 64 rows x 64 bf16
+constexpr int kFoldThreads = 384;  // producer + two consumer warpgroups
+constexpr int kPackThreads = 256;
+constexpr int kSmemCap = 232448;  // what a block may use (227 KiB)
+constexpr int kBarBytes = 256;
+
+template <int NT>
+struct Fold {
+  static constexpr int kQBytes = NT * 2 * kDB * kBox;
+  static constexpr int kTileBytes = NT * kDB * kBox;  // k's, and v^T's
+  static constexpr int kFit =
+      (kSmemCap - 1024 - kBarBytes - kQBytes) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < 3 ? kFit : 3;
+  static constexpr int kSmem =
+      kQBytes + kStages * 2 * kTileBytes + kBarBytes + 1024;
+  static_assert(kStages >= 1, "q and one stage must fit");
+  static_assert(kSmem <= kSmemCap, "shared memory");
+};
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared
+// memory; acc = 0 ignores d's old values.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, A from registers (a: this
+// thread's A fragment), B K-major in shared memory; acc = 0 ignores d.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads'): the two consumer
+// warpgroups' turns to issue s, 256 threads each (one warpgroup syncs, the
+// other arrives).
+__device__ __forceinline__ void turn_sync(int wg) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (wg ^ 1)) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait0() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+// p's split inside the fold, by integer arithmetic: conversion
+// instructions issue at a quarter of the FMA rate, and the softmax would
+// spend more issue slots on them than the tensor cores spend on a bf16
+// tile. Each term rounds half away from zero (add half an ulp of 8 bits,
+// drop the low 16) where split3 rounds half to even, so the terms may
+// differ from split3's on a tie, but hi + mid + lo == a all the same:
+// a - hi and its remainder are exact, and lo keeps 8 significant bits.
+// Returns each term's f32 bits, whose low halves are zero.
+__device__ __forceinline__ void split3_bits(float a, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x8000u) & 0xFFFF0000u;
+  const float r = a - __uint_as_float(hi);
+  mid = (__float_as_uint(r) + 0x8000u) & 0xFFFF0000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// The bf16x2 word of two such terms: a's upper half low, b's high.
+__device__ __forceinline__ uint32_t pack_hi16(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
+struct FoldArgs {
+  float* part_m;  // [nsplit][lq_p]
+  float* part_l;  // [nsplit][lq_p]
+  float* part_o;  // [nsplit][lq_p][kD]
+  int lq_p, lk, lk_p, tiles, nsplit;
+  float scale;
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kFoldThreads, 1)
+fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, FoldArgs args) {
+  using F = Fold<NT>;
+  constexpr int S = F::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_s = [&](int s) {
+    return base + uint32_t(F::kQBytes + s * 2 * F::kTileBytes);
+  };
+  auto v_s = [&](int s) { return k_s(s) + uint32_t(F::kTileBytes); };
+  const uint32_t bars = base + uint32_t(F::kQBytes + S * 2 * F::kTileBytes);
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + uint32_t(8 * (1 + s)); };
+  auto k_empty = [&](int s) { return bars + uint32_t(8 * (1 + S + s)); };
+  auto v_full = [&](int s) { return bars + uint32_t(8 * (1 + 2 * S + s)); };
+  auto v_empty = [&](int s) { return bars + uint32_t(8 * (1 + 3 * S + s)); };
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int row0 = int(blockIdx.x) * kRows;
+  const int split = int(blockIdx.y);
+  const int t0 = int((long long)split * args.tiles / args.nsplit);
+  const int t1 = int((long long)(split + 1) * args.tiles / args.nsplit);
+
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(k_full(s), 1);
+      sm90::mbar_init(v_full(s), 1);
+      sm90::mbar_init(k_empty(s), 2);
+      sm90::mbar_init(v_empty(s), 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: one thread loads q once, then keeps both rings full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&q_map)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&k_map)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n"
+                   :: "l"(reinterpret_cast<uint64_t>(&v_map)) : "memory");
+      sm90::mbar_expect_tx(q_full, F::kQBytes);
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int b = 0; b < kDB; ++b) {
+            sm90::tma_load(q_s + uint32_t(((t * 2 + c) * kDB + b) * kBox),
+                           &q_map, q_full, 64 * b,
+                           t * args.lq_p + row0 + 64 * c);
+          }
+      int s = 0;
+      uint32_t ph = 0;
+      for (int j = t0; j < t1; ++j) {
+        const int key0 = j * kKeys;
+        sm90::mbar_wait(k_empty(s), ph ^ 1);
+        sm90::mbar_expect_tx(k_full(s), F::kTileBytes);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int b = 0; b < kDB; ++b) {
+            sm90::tma_load(k_s(s) + uint32_t((t * kDB + b) * kBox), &k_map,
+                           k_full(s), 64 * b, t * args.lk_p + key0);
+          }
+        sm90::mbar_wait(v_empty(s), ph ^ 1);
+        sm90::mbar_expect_tx(v_full(s), F::kTileBytes);
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int b = 0; b < kDB; ++b) {
+            sm90::tma_load(v_s(s) + uint32_t((t * kDB + b) * kBox), &v_map,
+                           v_full(s), key0, t * kD + 64 * b);
+          }
+        if (++s == S) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer: query rows row0 + 64 c .. + 63. Thread t (warp w, lane l)
+  // holds rows 16 w + l / 4 and that + 8 of them, and in s columns
+  // (keys) 8 j + 2 (l % 4) and that + 1, j = 0..7 (wgmma's layout).
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, t = tid % 128, w = t / 32, l = t % 32;
+  float o[kD / 2], ot[kD / 2], sc[32];
+  uint32_t pf[3][4][4];  // p's terms as A fragments, per 16 keys
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  sm90::mbar_wait(q_full, 0);
+  // The warpgroups take turns to issue s (warpgroup 0 first), so one's
+  // softmax runs while the other's products do (FlashAttention-3's
+  // ping-pong). Each passes the turn once per tile; warpgroup 0 takes the
+  // last pass after the loop, so every arrival is matched.
+  if (c == 1) turn_pass(c);
+  int s = 0;
+  uint32_t ph = 0;
+  for (int j = t0; j < t1; ++j) {
+    const int key0 = j * kKeys;
+    // s = q k^T over the cross terms, smallest first.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    turn_sync(c);
+    sm90::mbar_wait(k_full(s), ph);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+      for (int qi = sum; qi >= 0; --qi) {
+        const int kj = sum - qi;
+        if (qi >= NT || kj >= NT) continue;
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          const uint32_t off = uint32_t((kk / 4) * kBox + 32 * (kk % 4));
+          wgmma_m64n64k16_ss(
+              sc,
+              sm90::smem_desc(q_s + uint32_t((qi * 2 + c) * kDB * kBox) + off),
+              sm90::smem_desc(k_s(s) + uint32_t(kj * kDB * kBox) + off), 1);
+        }
+      }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    turn_pass(c);
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(sc);
+    if (t == 0) sm90::mbar_arrive(k_empty(s));
+
+    // The online softmax on the fragments: sc[4 j + e] is row r = e / 2
+    // (r0 or r0 + 8), key 8 j + 2 (l % 4) + e % 2.
+    const bool tail = key0 + kKeys > args.lk;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i % 2);
+      float v = sc[i] * args.scale;
+      if (tail && key >= args.lk) v = -INFINITY;
+      sc[i] = v;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      uint32_t hi[2], mid[2], lo[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (i / 2) % 2;
+        const float p = expf(sc[i + h] - m_run[r]);
+        l_run[r] += p;
+        split3_bits(p, hi[h], mid[h], lo[h]);
+      }
+      // Keys 16 kk .. 16 kk + 15 are A fragment kk: words (row r0, keys
+      // +0/1), (r0 + 8, +0/1), (r0, +8/9), (r0 + 8, +8/9).
+      const int kk = i / 8, word = (i % 8) / 2;
+      pf[0][kk][word] = pack_hi16(hi[0], hi[1]);
+      pf[1][kk][word] = pack_hi16(mid[0], mid[1]);
+      pf[2][kk][word] = pack_hi16(lo[0], lo[1]);
+    }
+
+    // o_tile = p v over the cross terms, smallest first; A from registers.
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) ot[i] = 0.f;
+    sm90::mbar_wait(v_full(s), ph);
+    fence_regs(ot);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pf[i][kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+      for (int pi = sum; pi >= 0; --pi) {
+        const int vj = sum - pi;
+        if (vj >= NT) continue;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_m64n128k16_rs(
+              ot, pf[pi][kk],
+              sm90::smem_desc(v_s(s) + uint32_t(vj * kDB * kBox + 32 * kk)),
+              1);
+        }
+      }
+    wgmma_commit_wait0();
+    fence_regs(ot);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(pf[i][kk]);
+    if (t == 0) sm90::mbar_arrive(v_empty(s));
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) {
+      o[i] = fmaf(o[i], alpha[(i / 2) % 2], ot[i]);
+    }
+    if (++s == S) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+
+  if (c == 0) turn_sync(c);
+
+  // This split's (m, l, o) for the block's rows, o relative to m.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const long long rows = (long long)split * args.lq_p;
+  const int r0 = row0 + 64 * c + 16 * w + l / 4;
+  if (l % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      args.part_m[rows + r0 + 8 * r] = m_run[r];
+      args.part_l[rows + r0 + 8 * r] = l_run[r];
+    }
+  }
+  float* po = args.part_o + (rows + r0) * kD + 2 * (l % 4);
+#pragma unroll
+  for (int jj = 0; jj < kD / 8; ++jj) {
+    *reinterpret_cast<float2*>(po + 8 * jj) =
+        make_float2(o[4 * jj], o[4 * jj + 1]);
+    *reinterpret_cast<float2*>(po + 8 * kD + 8 * jj) =
+        make_float2(o[4 * jj + 2], o[4 * jj + 3]);
+  }
+}
+
+// The terms of an input value: its split for f32 inputs (NT = 3), the
+// value itself for bf16 (NT = 1).
+template <int NT>
+__device__ __forceinline__ void terms(float a, float (&t)[3]) {
+  if constexpr (NT == 1) {
+    t[0] = a;
+  } else {
+    sm90::split3(a, t[0], t[1], t[2]);
+  }
+}
+
+// Term i of eight consecutive values as four bf16x2 words.
+__device__ __forceinline__ uint4 pack8(const float (&t)[8][3], int i) {
+  return make_uint4(sm90::pack2(t[0][i], t[1][i]),
+                    sm90::pack2(t[2][i], t[3][i]),
+                    sm90::pack2(t[4][i], t[5][i]),
+                    sm90::pack2(t[6][i], t[7][i]));
+}
+
+// Blocks [0, row_blocks) write qs and ks (grid-stride over chunks of 8
+// columns of a row); the rest write vt, one 64 keys x 64 columns tile of
+// v each, through shared memory (read along d, written along keys).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kPackThreads)
+fold_pack_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, __nv_bfloat16* __restrict__ qs,
+                 __nv_bfloat16* __restrict__ ks,
+                 __nv_bfloat16* __restrict__ vt, int lq, int lk, int d,
+                 long long lq_p, long long lk_p, int row_blocks) {
+  const int tid = threadIdx.x;
+  if (int(blockIdx.x) < row_blocks) {
+    const int per_row = kD / 8;
+    const long long chunks = (lq_p + lk_p) * per_row;
+    for (long long ch = blockIdx.x * (long long)kPackThreads + tid;
+         ch < chunks; ch += (long long)row_blocks * kPackThreads) {
+      const long long r = ch / per_row;
+      const int c0 = int(ch % per_row) * 8;
+      const bool is_q = r < lq_p;
+      const long long rr = is_q ? r : r - lq_p;
+      const long long n = is_q ? lq : lk;
+      const T* src = (is_q ? q : k) + rr * d;
+      float t[8][3];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float a = rr < n && c0 + e < d ? to_f32(src[c0 + e]) : 0.f;
+        terms<NT>(a, t[e]);
+      }
+      __nv_bfloat16* dst = (is_q ? qs : ks) + rr * kD + c0;
+      const long long term_stride = (is_q ? lq_p : lk_p) * kD;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        *reinterpret_cast<uint4*>(dst + i * term_stride) = pack8(t, i);
+      }
+    }
+    return;
+  }
+  __shared__ float tile[kKeys][64 + 1];  // [key][column]
+  const long long tt = blockIdx.x - row_blocks;
+  const long long tiles_k = lk_p / kKeys;
+  const long long key0 = (tt % tiles_k) * kKeys;
+  const int c0 = int(tt / tiles_k) * 64;
+  const int j = tid % 64;
+#pragma unroll
+  for (int it = 0; it < kKeys * 64 / kPackThreads; ++it) {
+    const int i = it * (kPackThreads / 64) + tid / 64;
+    tile[i][j] = key0 + i < lk && c0 + j < d
+                     ? to_f32(v[(key0 + i) * d + c0 + j])
+                     : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < kKeys * 64 / 8 / kPackThreads; ++h) {
+    const int qd = tid + h * kPackThreads;
+    const int r = qd / 8, kc = (qd % 8) * 8;
+    float t[8][3];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) terms<NT>(tile[kc + e][r], t[e]);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      *reinterpret_cast<uint4*>(vt + ((long long)i * kD + c0 + r) * lk_p +
+                                key0 + kc) = pack8(t, i);
+    }
+  }
+}
+
+// One warp per row, lane j on columns 4 j .. 4 j + 3: every lane reads the
+// carry's m and l before lane 0 writes them, so they may alias m_out and
+// l_out.
+template <typename TO>
+__global__ void __launch_bounds__(256)
+fold_combine_kernel(const float* __restrict__ part_m,
+                    const float* __restrict__ part_l,
+                    const float* __restrict__ part_o, int nsplit,
+                    long long lq_p, const float* m_in,
+                    const float* l_in, float* m_out, float* l_out,
+                    float* o, TO* out, int lq, int d) {
+  const int row = int(blockIdx.x) * 8 + int(threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= lq) return;
+  const float mi = m_in[row], li = l_in[row];
+  float mx = mi;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[s * lq_p + row]);
+  const float a_in = expf(mi - mx);  // 0 for the first fold's -inf
+  float ln = li * a_in, acc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = 4 * lane + e;
+    acc[e] = col < d ? o[(long long)row * d + col] * a_in : 0.f;
+  }
+  for (int s = 0; s < nsplit; ++s) {
+    const long long pr = s * lq_p + row;
+    const float a = expf(part_m[pr] - mx);
+    ln += part_l[pr] * a;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * lane + e;
+      acc[e] += part_o[pr * kD + col] * a;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = 4 * lane + e;
+    if (col >= d) continue;
+    if (out != nullptr) {
+      store_out(out + (long long)row * d + col, acc[e] / ln);
+    } else {
+      o[(long long)row * d + col] = acc[e];
+    }
+  }
+  if (lane == 0) {
+    m_out[row] = mx;
+    l_out[row] = ln;
+  }
+}
+
+// The scratch of one call: split operands, then the splits' partials,
+// each 1024-byte aligned.
+struct Layout {
+  int nt, nsplit, tiles, row_blocks;
+  long long lq_p, lk_p, qs, ks, vt, pm, pl, po, bytes;
+};
+
+long long align1k(long long v) { return (v + 1023) / 1024 * 1024; }
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      n <= 0) {
+    n = 132;
+  }
+  return n;
+}
+
+Layout layout(int lq, int lk, int d, int dtype) {
+  Layout L;
+  L.nt = dtype == 0 ? 3 : 1;
+  L.lq_p = (lq + kRows - 1) / kRows * kRows;
+  L.lk_p = (lk + kKeys - 1) / kKeys * kKeys;
+  L.row_blocks = int(L.lq_p / kRows);
+  L.tiles = int(L.lk_p / kKeys);
+  // Key splits fill the SMs; each split holds at least one tile.
+  const int want = sm_count() / L.row_blocks;
+  L.nsplit = want < 1 ? 1 : (want > L.tiles ? L.tiles : want);
+  long long at = 0;
+  L.qs = at; at = align1k(at + L.nt * L.lq_p * kD * 2);
+  L.ks = at; at = align1k(at + L.nt * L.lk_p * kD * 2);
+  L.vt = at; at = align1k(at + L.nt * L.lk_p * kD * 2);
+  L.pm = at; at = align1k(at + L.nsplit * L.lq_p * 4);
+  L.pl = at; at = align1k(at + L.nsplit * L.lq_p * 4);
+  L.po = at; at = align1k(at + L.nsplit * L.lq_p * kD * 4);
+  L.bytes = at;
+  return L;
+}
+
+template <typename T, int NT>
+int launch_wgmma(const void* q, const void* k, const void* v, const float* m,
+                 const float* l, float* m_out, float* l_out, float* o,
+                 void* out, uint8_t* scratch, const Layout& L, int lq, int lk,
+                 int d, float scale, cudaStream_t stream) {
+  using F = Fold<NT>;
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(scratch + L.qs);
+  auto* ks = reinterpret_cast<__nv_bfloat16*>(scratch + L.ks);
+  auto* vt = reinterpret_cast<__nv_bfloat16*>(scratch + L.vt);
+  const long long chunks = (L.lq_p + L.lk_p) * (kD / 8);
+  long long row_blocks = (chunks + kPackThreads - 1) / kPackThreads;
+  if (row_blocks > 1024) row_blocks = 1024;  // grid-stride beyond
+  const long long vt_tiles = (L.lk_p / kKeys) * kDB;
+  fold_pack_kernel<T, NT>
+      <<<unsigned(row_blocks + vt_tiles), kPackThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), qs, ks, vt, lq, lk, d, L.lq_p, L.lk_p,
+          int(row_blocks));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  CUtensorMap q_map, k_map, v_map;
+  e = sm90::encode_kmajor_bf16(&q_map, qs, NT * L.lq_p, kD, 64);
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&k_map, ks, NT * L.lk_p, kD, 64);
+  }
+  if (e == cudaSuccess) {
+    e = sm90::encode_kmajor_bf16(&v_map, vt, (long long)NT * kD, L.lk_p, 64);
+  }
+  if (e != cudaSuccess) return int(e);
+  e = cudaFuncSetAttribute(fold_wgmma_kernel<NT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           F::kSmem);
+  if (e != cudaSuccess) return int(e);
+  FoldArgs args{reinterpret_cast<float*>(scratch + L.pm),
+                reinterpret_cast<float*>(scratch + L.pl),
+                reinterpret_cast<float*>(scratch + L.po),
+                int(L.lq_p), lk, int(L.lk_p), L.tiles, L.nsplit, scale};
+  fold_wgmma_kernel<NT>
+      <<<dim3(unsigned(L.row_blocks), unsigned(L.nsplit)), kFoldThreads,
+         F::kSmem, stream>>>(q_map, k_map, v_map, args);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  fold_combine_kernel<T><<<unsigned((lq + 7) / 8), 256, 0, stream>>>(
+      args.part_m, args.part_l, args.part_o, L.nsplit, L.lq_p, m, l,
+      m_out, l_out, o, static_cast<T*>(out), lq, d);
+  return int(cudaGetLastError());
+}
+
+// ---- d > 128: the chunked f32 FMA kernel ----
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64, kBK = 64, kChunk = 128;
+constexpr int kLdq = kBQ + 4, kLdk = kBK + 4;  // padded rows, 16-byte aligned
+constexpr int kChunkSmem =
+    (kChunk * kLdq + kChunk * kLdk + kBK * kChunk + kBK * kLdq) *
+    int(sizeof(float));
+
+// Loads rows [r0g, r0g + rows) of x, columns [c0g, c0g + kChunk),
+// transposed into dst [kChunk][ld], zero past the rows' end n and the
+// columns' end d.
+template <int ROWS, typename T>
 __device__ __forceinline__ void load_t(float* dst, int ld, const T* x,
                                        int64_t r0g, int64_t n, int c0g,
                                        int d, int tid) {
-  for (int i = tid; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < ROWS * kChunk; i += kThreads) {
+    const int r = i / kChunk, c = i % kChunk;
     dst[c * ld + r] = (r0g + r < n && c0g + c < d)
                           ? to_f32(x[(r0g + r) * d + c0g + c])
                           : 0.f;
   }
 }
 
-// s[4][4] += this thread's patch of Qt^T Kt over D columns.
-template <int D>
+// s[4][4] += this thread's patch of Qt^T Kt over one chunk.
 __device__ __forceinline__ void add_scores(float (&s)[4][4], const float* Qt,
                                            const float* Kt, int r0, int tx) {
 #pragma unroll 8
-  for (int c = 0; c < D; ++c) {
+  for (int c = 0; c < kChunk; ++c) {
     const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * kLdq + r0]);
     const float4 kb = *reinterpret_cast<const float4*>(&Kt[c * kLdk + tx * 4]);
     const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
@@ -92,29 +772,27 @@ __device__ __forceinline__ void add_scores(float (&s)[4][4], const float* Qt,
   }
 }
 
-// CHUNKED: d > D, so q and k go through shared memory a chunk of D
-// columns at a time and the block's o columns start at blockIdx.y * D.
-template <typename T, int D, bool CHUNKED>
+// One block per 64 query rows and per 128 columns of o (blockIdx.y); with
+// out set, it writes o' / l' there in T instead of o'.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ring_fold_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* m_in,
                  const float* l_in, float* m_out, float* l_out,
-                 float* __restrict__ o_io, int lq, int lk, int d,
+                 float* __restrict__ o_io, T* out, int lq, int lk, int d,
                  float scale) {
-  constexpr int CPT = D / 16;  // o columns per thread
+  constexpr int CPT = kChunk / 16;  // o columns per thread
   extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;              // [D][kLdq]  q (chunk) transposed
-  float* Kt = Qt + D * kLdq;     // [D][kLdk]  k tile (chunk) transposed
-  float* Vs = Kt + D * kLdk;     // [kBK][D]   v tile, this block's columns
-  float* Pt = Vs + kBK * D;      // [kBK][kLdq] p transposed
+  float* Qt = smem;                  // [kChunk][kLdq]  q chunk transposed
+  float* Kt = Qt + kChunk * kLdq;    // [kChunk][kLdk]  k chunk transposed
+  float* Vs = Kt + kChunk * kLdk;    // [kBK][kChunk]   v tile, this block's
+  float* Pt = Vs + kBK * kChunk;     // [kBK][kLdq]     p transposed
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int r0 = ty * 4;   // this thread's 4 query rows (local)
+  const int r0 = ty * 4;    // this thread's 4 query rows (local)
   const int c0 = tx * CPT;  // this thread's o columns (in the chunk)
-  const int cb = CHUNKED ? int(blockIdx.y) * D : 0;  // first o column
+  const int cb = int(blockIdx.y) * kChunk;  // first o column
   const int64_t q0 = int64_t(blockIdx.x) * kBQ;
-
-  if constexpr (!CHUNKED) load_t<D, kBQ>(Qt, kLdq, q, q0, lq, 0, d, tid);
 
   float mrow[4], lrow[4], acc[4][CPT];
 #pragma unroll
@@ -131,36 +809,24 @@ ring_fold_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int k0 = 0; k0 < lk; k0 += kBK) {
-    __syncthreads();  // Qt written; the last tile's Qt, Kt, Vs, Pt all read
+    __syncthreads();  // the last tile's Qt, Kt, Vs, Pt all read
     float s[4][4];
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
-    if constexpr (!CHUNKED) {
-      for (int i = tid; i < kBK * D; i += kThreads) {
-        const int j = i / D, c = i % D;
-        const bool ok = k0 + j < lk && c < d;
-        const int64_t g = int64_t(k0 + j) * d + c;
-        Kt[c * kLdk + j] = ok ? to_f32(k[g]) : 0.f;
-        Vs[j * D + c] = ok ? to_f32(v[g]) : 0.f;
-      }
+    for (int i = tid; i < kBK * kChunk; i += kThreads) {
+      const int j = i / kChunk, c = i % kChunk;
+      Vs[j * kChunk + c] = (k0 + j < lk && cb + c < d)
+                               ? to_f32(v[int64_t(k0 + j) * d + cb + c])
+                               : 0.f;
+    }
+    for (int dc = 0; dc < d; dc += kChunk) {
+      if (dc > 0) __syncthreads();  // the last chunk's Qt and Kt read
+      load_t<kBQ>(Qt, kLdq, q, q0, lq, dc, d, tid);
+      load_t<kBK>(Kt, kLdk, k, k0, lk, dc, d, tid);
       __syncthreads();
-      add_scores<D>(s, Qt, Kt, r0, tx);
-    } else {
-      for (int i = tid; i < kBK * D; i += kThreads) {
-        const int j = i / D, c = i % D;
-        Vs[j * D + c] = (k0 + j < lk && cb + c < d)
-                            ? to_f32(v[int64_t(k0 + j) * d + cb + c])
-                            : 0.f;
-      }
-      for (int dc = 0; dc < d; dc += D) {
-        if (dc > 0) __syncthreads();  // the last chunk's Qt and Kt read
-        load_t<D, kBQ>(Qt, kLdq, q, q0, lq, dc, d, tid);
-        load_t<D, kBK>(Kt, kLdk, k, k0, lk, dc, d, tid);
-        __syncthreads();
-        add_scores<D>(s, Qt, Kt, r0, tx);
-      }
+      add_scores(s, Qt, Kt, r0, tx);
     }
 
 #pragma unroll
@@ -204,20 +870,11 @@ ring_fold_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 pa = *reinterpret_cast<const float4*>(&Pt[j * kLdq + r0]);
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
       float vb[CPT];
-      if constexpr (CPT % 4 == 0) {
 #pragma unroll
-        for (int e = 0; e < CPT; e += 4) {
-          const float4 t =
-              *reinterpret_cast<const float4*>(&Vs[j * D + c0 + e]);
-          vb[e] = t.x; vb[e + 1] = t.y; vb[e + 2] = t.z; vb[e + 3] = t.w;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < CPT; e += 2) {
-          const float2 t =
-              *reinterpret_cast<const float2*>(&Vs[j * D + c0 + e]);
-          vb[e] = t.x; vb[e + 1] = t.y;
-        }
+      for (int e = 0; e < CPT; e += 4) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&Vs[j * kChunk + c0 + e]);
+        vb[e] = t.x; vb[e + 1] = t.y; vb[e + 2] = t.z; vb[e + 3] = t.w;
       }
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
@@ -238,68 +895,73 @@ ring_fold_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < CPT; ++e) {
       const int c = cb + c0 + e;
-      if (c < d) o_io[r * d + c] = acc[ii][e];
+      if (c >= d) continue;
+      if (out != nullptr) {
+        store_out(out + r * d + c, acc[ii][e] / lrow[ii]);
+      } else {
+        o_io[r * d + c] = acc[ii][e];
+      }
     }
   }
 }
 
-template <typename T, int D, bool CHUNKED>
-int launch(const void* q, const void* k, const void* v, const float* m,
-           const float* l, float* m_out, float* l_out, float* o, int lq,
-           int lk, int d, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_floats<D>() * sizeof(float);
+template <typename T>
+int launch_chunked(const void* q, const void* k, const void* v,
+                   const float* m, const float* l, float* m_out,
+                   float* l_out, float* o, void* out, int lq, int lk, int d,
+                   float scale, cudaStream_t stream) {
   // Above 48 KB of dynamic shared memory needs this opt-in, per device.
   const cudaError_t e = cudaFuncSetAttribute(
-      ring_fold_kernel<T, D, CHUNKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
+      ring_fold_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kChunkSmem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid(unsigned((lq + kBQ - 1) / kBQ), unsigned((d + D - 1) / D));
-  ring_fold_kernel<T, D, CHUNKED><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(unsigned((lq + kBQ - 1) / kBQ),
+                  unsigned((d + kChunk - 1) / kChunk));
+  ring_fold_kernel<T><<<grid, kThreads, kChunkSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m, l, m_out, l_out, o, lq, lk, d, scale);
+      static_cast<const T*>(v), m, l, m_out, l_out, o, static_cast<T*>(out),
+      lq, lk, d, scale);
   return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const float* m,
-             const float* l, float* m_out, float* l_out, float* o, int lq,
-             int lk, int d, float scale, cudaStream_t s) {
-  if (d <= 32) {
-    return launch<T, 32, false>(q, k, v, m, l, m_out, l_out, o, lq, lk, d,
-                                scale, s);
-  }
-  if (d <= 64) {
-    return launch<T, 64, false>(q, k, v, m, l, m_out, l_out, o, lq, lk, d,
-                                scale, s);
-  }
-  if (d <= 128) {
-    return launch<T, 128, false>(q, k, v, m, l, m_out, l_out, o, lq, lk, d,
-                                 scale, s);
-  }
-  return launch<T, 128, true>(q, k, v, m, l, m_out, l_out, o, lq, lk, d,
-                              scale, s);
 }
 
 }  // namespace
 
+// Bytes of device scratch a call with these shapes needs (256-byte
+// aligned, as PyTorch allocates): the split operands and the key splits'
+// partials for d <= 128, none for d > 128.
+extern "C" long long tbus_ring_fold_scratch_bytes(int lq, int lk, int d,
+                                                  int dtype) {
+  if (lq <= 0 || lk <= 0 || d <= 0 || d > kChunk) return 0;
+  return layout(lq, lk, d, dtype).bytes;
+}
+
+// out: null, or (final fold) [lq, d] in q's dtype, written instead of o.
 extern "C" int tbus_ring_fold(const void* q, const void* k, const void* v,
                               const void* m, const void* l, void* m_out,
-                              void* l_out, void* o, int lq, int lk, int d,
-                              float scale, int dtype, void* stream) {
+                              void* l_out, void* o, void* out, void* scratch,
+                              int lq, int lk, int d, float scale, int dtype,
+                              void* stream) {
   if (lq <= 0 || lk <= 0 || d <= 0) return int(cudaSuccess);
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mf = static_cast<const float*>(m);
   const float* lf = static_cast<const float*>(l);
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   float* of = static_cast<float*>(o);
-  if (dtype == 0) {
-    return launch_d<float>(q, k, v, mf, lf, mo, lo, of, lq, lk, d, scale, s);
+  if (d > kChunk) {
+    return dtype == 0
+               ? launch_chunked<float>(q, k, v, mf, lf, mo, lo, of, out, lq,
+                                       lk, d, scale, s)
+               : launch_chunked<__nv_bfloat16>(q, k, v, mf, lf, mo, lo, of,
+                                               out, lq, lk, d, scale, s);
   }
-  if (dtype == 1) {
-    return launch_d<__nv_bfloat16>(q, k, v, mf, lf, mo, lo, of, lq, lk, d,
-                                   scale, s);
-  }
-  return int(cudaErrorInvalidValue);
+  if (scratch == nullptr) return int(cudaErrorInvalidValue);
+  const Layout L = layout(lq, lk, d, dtype);
+  auto* sc = static_cast<uint8_t*>(scratch);
+  return dtype == 0
+             ? launch_wgmma<float, 3>(q, k, v, mf, lf, mo, lo, of, out, sc, L,
+                                      lq, lk, d, scale, s)
+             : launch_wgmma<__nv_bfloat16, 1>(q, k, v, mf, lf, mo, lo, of,
+                                              out, sc, L, lq, lk, d, scale, s);
 }

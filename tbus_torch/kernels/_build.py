@@ -247,15 +247,17 @@ def gemm_lib() -> ctypes.CDLL:
         ("tbus_gemm_padded", [_LL, _LL, _LL, ctypes.POINTER(_LL)], None),
         ("tbus_matmul_bf16_f32", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL,
                                   _LL, _LL, _I, _I, _VP], _I),
-        ("tbus_dw_f32_bf16", [_VP, _VP, _VP, _I, _I, _I, _I, _VP], _I)])
+        ("tbus_dw_f32_bf16", [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _LL, _LL,
+                              _LL, _I, _VP], _I)])
 
 
 def ring_fold_lib() -> ctypes.CDLL:
     """Ring attention's fold, K3 (csrc/ring_fold.cu)."""
     return _cuda_lib("ring_fold", [
+        ("tbus_ring_fold_scratch_bytes", [_I, _I, _I, _I], _LL),
         ("tbus_ring_fold",
-         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
-         _I)])
+         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
+          _I, _VP], _I)])
 
 
 def device_programs_lib() -> ctypes.CDLL:

@@ -10,12 +10,21 @@ it, all in f32 after the input cast:
     l' = l a + rowsum exp(s - m'); o' = o a + exp(s - m') v
 
 The reference is pure and returns the new carry; :func:`fold_` writes it
-into m, l and o in place, which saves the carry's copy per ring step.
+into m, l and o in place, which saves the carry's copy per ring step. With
+``final=True`` the fold also ends the ring (the reference's :158): it
+returns ``(o' / l').to(q.dtype)`` instead of writing o' (m' and l' are
+still written), so the last step's normalise-and-cast runs inside the
+kernel.
+
+On the card, heads up to :data:`HEAD_CHUNK` wide take the split-term
+design (both products on the tensor cores over exact bf16 terms of the
+f32 operands: a pack, the fold, and a merge of the key splits); wider
+heads take the chunked f32 FMA kernel (csrc/ring_fold.cu).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -25,8 +34,9 @@ from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
 # launched, never by the plain version).
 launches = 0
 
-# The kernel's widest chunk of the head dim; a wider d runs in several
-# chunks, whose m and l go to fresh outputs (csrc/ring_fold.cu).
+# The widest head the split-term wgmma kernel takes; a wider d runs in the
+# chunked FMA kernel, in chunks of this many columns, whose m and l go to
+# fresh outputs (csrc/ring_fold.cu).
 HEAD_CHUNK = 128
 
 
@@ -57,10 +67,13 @@ def _scale(d: int) -> torch.Tensor:
 
 
 def fold_reference(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
-                   m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   final: bool = False
+                   ) -> Union[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                              torch.Tensor]:
     """Plain version of the kernel, on any device: returns the new carry
-    (m', l', o') and leaves its inputs as they are."""
+    (m', l', o'), or with final=True the ring's output (o' / l') in q's
+    dtype; leaves its inputs as they are."""
     _check(q, k_blk, v_blk, m, l, o)
     with ieee_fp32():
         s = torch.einsum("qd,kd->qk", q.float(), k_blk.float())
@@ -70,21 +83,28 @@ def fold_reference(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
         p = torch.exp(s - m_new[:, None])
         l_new = l * alpha + p.sum(dim=-1)
         o_new = o * alpha[:, None] + p @ v_blk.float()
+    if final:
+        return (o_new / l_new[:, None]).to(q.dtype)
     return m_new, l_new, o_new
 
 
 def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
-          m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> None:
-    """Folds one visiting k/v block into the carry (m, l, o) IN PLACE.
-    Launches the kernel for CUDA tensors; the plain version serves only
-    tensors on the CPU."""
+          m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+          final: bool = False) -> Optional[torch.Tensor]:
+    """Folds one visiting k/v block into the carry (m, l, o) IN PLACE; with
+    final=True writes m and l, leaves o, and returns (o' / l') in q's
+    dtype. Launches the kernel for CUDA tensors; the plain version serves
+    only tensors on the CPU."""
     global launches
     _check(q, k_blk, v_blk, m, l, o)
     if q.device.type == "cpu":
-        for dst, src in zip((m, l, o),
-                            fold_reference(q, k_blk, v_blk, m, l, o)):
-            dst.copy_(src)
-        return
+        m_new, l_new, o_new = fold_reference(q, k_blk, v_blk, m, l, o)
+        m.copy_(m_new)
+        l.copy_(l_new)
+        if final:
+            return (o_new / l_new[:, None]).to(q.dtype)
+        o.copy_(o_new)
+        return None
     if q.device.type != "cuda":
         raise ValueError(f"fold_: unsupported device {q.device}")
     lq, d = q.shape
@@ -98,15 +118,24 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
 
     lib = _build.ring_fold_lib()
     q, k_blk, v_blk = (t.contiguous() for t in (q, k_blk, v_blk))
-    # One chunk writes m and l in place; several read the old m and l
-    # until the last of them ends, so theirs go to fresh tensors.
+    code = DTYPE_CODES[q.dtype]
+    # The split-term kernel writes m and l in place; the chunked one's
+    # blocks read the old m and l until the last of them ends, so theirs
+    # go to fresh tensors.
     m_out, l_out = ((m, l) if d <= HEAD_CHUNK
                     else (torch.empty_like(m), torch.empty_like(l)))
+    out = torch.empty((lq, d), dtype=q.dtype, device=q.device) \
+        if final else None
     with torch.cuda.device(q.device):
+        nbytes = lib.tbus_ring_fold_scratch_bytes(lq, lk, d, code)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) \
+            if nbytes else None
         err = lib.tbus_ring_fold(
             q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
             l.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), o.data_ptr(),
-            lq, lk, d, float(_scale(d)), DTYPE_CODES[q.dtype],
+            out.data_ptr() if final else None,
+            scratch.data_ptr() if nbytes else None, lq, lk, d,
+            float(_scale(d)), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_fold kernel launch failed: CUDA error {err}")
@@ -114,3 +143,4 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     if m_out is not m:
         m.copy_(m_out)
         l.copy_(l_out)
+    return out

@@ -214,7 +214,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Exactly n - 1 rotations of the (k, v) pair, each one batch_isend_irecv
     started before the fold of the block it carries away, then a final
-    fold with no trailing rotation."""
+    fold with no trailing rotation, which also normalises and casts (o / l
+    in q's dtype, inside the kernel on the card)."""
     global ring_rotations
     n = dist.get_world_size(group)
     lq, d = q.shape
@@ -228,8 +229,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _finish(works)
         ring_rotations += 1
         k_blk, v_blk = k_next, v_next
-    fold_(q, k_blk, v_blk, m, l, o)
-    return (o / l[:, None]).to(q.dtype)
+    return fold_(q, k_blk, v_blk, m, l, o, final=True)
 
 
 def make_ring_attention(mesh: DeviceMesh, axis: str = "sp"

@@ -10,7 +10,11 @@ reference's own ring test holds ring attention to full attention
 (tests/test_collectives.py:97). The kernel rescales per tile of 64 keys
 where the plain version takes one max over the whole block, and sums in
 another order; the same inputs reach both in f32, so bf16 inputs are held
-to the same tolerance.
+to the same tolerance. Heads up to 128 wide run the split-term design
+(both products on wgmma over exact bf16 terms); wider heads the chunked
+f32 FMA kernel. The fused last fold (final=True) writes o / l in q's
+dtype: an f32 output is held to the same 2e-5, a bf16 one to that plus
+one bf16 ulp (both round an f32 value that close to bf16 once).
 """
 
 import math
@@ -69,3 +73,65 @@ def test_fold_kernel_matches_plain_version(card, shape, dtype):
     torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(o / l[:, None], po / pl[:, None],
                                rtol=2e-5, atol=2e-5)
+
+
+def _bf16_ulp(a):
+    _, e = torch.frexp(a.abs().double())
+    return torch.ldexp(torch.ones_like(a, dtype=torch.float64),
+                       torch.clamp(e - 8, min=-133))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 16, 1), (16, 16, 32, 8),
+                                   (100, 77, 48, 3), (8192, 8192, 128, 2),
+                                   (70, 129, 129, 2), (33, 65, 400, 2)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_final_fold_writes_the_normalised_output(card, shape, dtype):
+    lq, lk, d, folds = shape
+    rng = np.random.default_rng(lq * 3 + lk + d)
+    q = torch.from_numpy(rng.standard_normal((lq, d), dtype=np.float32))
+    q = q.to(card, dtype)
+    blocks = [tuple(torch.from_numpy(rng.standard_normal(
+        (lk, d), dtype=np.float32)).to(card, dtype) for _ in range(2))
+        for _ in range(folds)]
+    m, l, o = _carry(lq, d, card)
+    pm, pl, po = _carry(lq, d, card)
+    for k, v in blocks[:-1]:
+        rf.fold_(q, k, v, m, l, o)
+        pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
+    k, v = blocks[-1]
+    o_before = o.clone()
+    before = rf.launches
+    out = rf.fold_(q, k, v, m, l, o, final=True)
+    want = rf.fold_reference(q, k, v, pm, pl, po, final=True)
+    pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
+    torch.cuda.synchronize()
+    assert rf.launches == before + 1
+    assert out.dtype == dtype and out.shape == (lq, d)
+    assert want.dtype == dtype and torch.equal(o, o_before)
+    torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(l, pl, rtol=2e-5, atol=2e-5)
+    exact = (po / pl[:, None]).double()
+    tol = 2e-5 + 2e-5 * exact.abs()
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(exact.float())
+    assert bool(((out.double() - exact).abs() <= tol).all())
+    assert bool(((want.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_k3_runs_wgmma(card):
+    """The d <= 128 fold is the split-term wgmma kernel: HGMMA in the SASS
+    of both instantiations (f32 and bf16 inputs), no HMMA, and no spills
+    in ptxas's report."""
+    q = torch.ones((8, 16), device=card)
+    rf.fold_(q, q, q, *_carry(8, 16, card))
+    from tbus_torch.kernels import _build
+
+    report = _build.gemm_sass("ring_fold", kernel="fold_wgmma_kernel")
+    assert len(report) == 2, report
+    usage = _build.ptxas_usage("ring_fold")
+    for fn, counts in report.items():
+        assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, (fn, counts)
+        assert usage[fn]["spill_stores"] + usage[fn]["spill_loads"] == 0
