@@ -35,8 +35,8 @@ Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
 bridges with g++; the registers and spills from ptxas, and cuobjdump's
-SASS of K1's, K2's and K6's GEMM and of K3's split-term fold: HGMMA
-(wgmma), no HMMA; (iii)
+SASS of K1's, K2's and K6's GEMM and of K3's and K5's split-term
+kernels: HGMMA (wgmma), no HMMA, no spills; (iii)
 row_transform against its plain version at path 1's shapes, timed beside
 its bound; (iv) the runtime's device kind against its host kind; (v)
 path 1 through the runtime entry points the bridge calls, with its
@@ -61,8 +61,16 @@ path and against plain full attention, with the step's wall time and
 device-busy share; (x) dryrun_multichip(1) in its own process; (xi) K4,
 K5 and K6 against their plain versions at path 3's shapes (the 256 KiB
 serving step, 4 KiB and 1 MiB payloads, dot128 at k = 2048,
-dotbench4096x32 and chains at the GEMM's tile edges), timed beside their
-bounds and the library calls; (xii) path 3a: device methods (echo,
+dotbench4096x32 and chains at the GEMM's tile edges): K4 byte for byte,
+also through the library with in and out at one offset (a scalar head)
+and as its first design's kernel (v1); K5 on normal payloads and on rows
+of f32 subnormals, of mixed scales and with NaN and +-inf; K4 timed at 4
+KiB, 64 KiB, 256 KiB and 1 MiB and K5 at k = 2048 on the profiler's
+clock beside their first designs (tbus_u8_transform_v1, tbus_dot128_v1),
+K4's floor (an empty kernel in its launch shape, one 16-byte load and
+store a thread), their bounds and the library calls on the same clock
+(x + 1, bitwise_xor, clone; torch.matmul f32 with TF32 off); (xii) path
+3a: device methods (echo,
 xor255, incr at 4 KiB and 1 MiB, dot128 at 1 MiB, dotbench4096x32 on a
 4-byte seed), every reply held to the plain version on the card, with
 the runtime's launch counts reset before and read after, per-call
@@ -210,11 +218,12 @@ def phase_build():
 
 def _check_gemm_build(_build):
     """K1's, K2's and K6's GEMM is the TMA + wgmma mainloop, and K3's
-    d <= 128 fold the split-term wgmma kernel: HGMMA and no HMMA in their
-    SASS, and no spills in ptxas's report of the build (kept beside the
-    library, so a cached build is checked too)."""
+    d <= 128 fold and K5 the split-term wgmma kernels: HGMMA and no HMMA
+    in their SASS, and no spills in ptxas's report of the build (kept
+    beside the library, so a cached build is checked too)."""
     for lib, kernel in (("gemm_bf16", "gemm_sm90_kernel"),
                         ("device_programs", "gemm_sm90_kernel"),
+                        ("device_programs", "dot128_kernel"),
                         ("ring_fold", "fold_wgmma_kernel")):
         sass = _build.gemm_sass(lib, kernel)
         usage = {fn: u for fn, u in _build.ptxas_usage(lib).items()
@@ -444,6 +453,25 @@ def _device_parts(torch, fn, n, kernels, tries=3):
     missing = sorted(k for p, k in kernels.items() if p not in out)
     raise AssertionError(f"the profiler saw no {', '.join(missing)} in "
                          f"{tries} runs")
+
+
+def _device_call_ms(torch, fn, n, tries=3):
+    """Device ms of one fn() call from the profiler, the clock
+    _kernel_device_ms reads, for library calls whose kernels have names
+    of their own: each kernel or copy fn() runs once a call, its time a
+    launch summed over them. Per launch, so a run in which the profiler
+    missed some launches still counts (see _device_parts); a run in
+    which it saw none is profiled again."""
+    for _ in range(tries):
+        _, rows = _device_profile(torch, fn, n)
+        if rows:
+            return sum(r[1] / r[2] for r in rows) / 1e3
+    raise AssertionError(f"the profiler saw no device work in {tries} runs")
+
+
+def _raise_cuda(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def _kernel_device_ms(torch, fn, n, kernel="row_transform_kernel"):
@@ -961,6 +989,9 @@ def phase_dryrun():
 
 U8_TRANSFORMS = ("echo", "xor255", "incr")
 SERVE_STEP = 64 * 4096  # ServeOptions defaults: max_batch x token_bytes
+# K4 timed at the path's sizes: a 4 KiB payload, a 64 KiB shard of path
+# 4d's step, the serving step, a 1 MiB payload.
+K4_SIZES = [4096, 1 << 16, SERVE_STEP, 1 << 20]
 DOT128_K = (1 << 20) // 512  # bench.py:282-284's 1 MiB payload
 DOTBENCH = (4096, 32)  # bench.py:306 dotbench4096x32
 # (N, T) checked: (256, 3) and (384, 2) on and past the GEMM's 256 tile.
@@ -1012,13 +1043,17 @@ def _dotbench_check(torch, n, t, seed, got_sum, got_last):
 def phase_device_kernels(torch, dev):
     phase("kernels K4-K6: the device plane's programs against their plain "
           "versions")
-    from tbus_torch.kernels import device_programs as dp, ieee_fp32
+    from tbus_torch.kernels import _build, device_programs as dp, ieee_fp32
 
     rng = np.random.default_rng(SEED + 20)
     recs = {}
 
     # K4: byte for byte at the path's shapes, ragged lengths and an
-    # unaligned start (the scalar path).
+    # unaligned start (the scalar path); then through the library with in
+    # and out at one offset modulo 16 (a scalar head before the vector
+    # body), and the v1 kernel, which is timed beside it.
+    lib = _build.device_programs_lib()
+    stream = torch.cuda.current_stream().cuda_stream
     raw = torch.from_numpy(rng.integers(0, 256, (1 << 20) + 64,
                                         dtype=np.uint8)).cuda()
     cases = [(0, n) for n in (SERVE_STEP, 4096, 1 << 20, 1, 4097,
@@ -1029,67 +1064,127 @@ def phase_device_kernels(torch, dev):
             got = dp.u8_transform(x, tf)
             if not torch.equal(got, dp.u8_transform_reference(x, tf)):
                 raise AssertionError(f"u8_transform {tf} n={n} off={off}")
+    sink = torch.empty_like(raw)
+    lib_cases = [(off, n) for off, n in (
+        (0, 1 << 20), (0, (1 << 20) + 9), (0, (1 << 16) + 5),
+        (5, SERVE_STEP + 3), (15, 4096 + 1))]
+    for fn in ("tbus_u8_transform", "tbus_u8_transform_v1"):
+        for off, n in lib_cases:
+            x, out = raw[off:off + n], sink[off:off + n]
+            for tf in U8_TRANSFORMS:
+                _raise_cuda(getattr(lib, fn)(x.data_ptr(), out.data_ptr(), n,
+                                             dp.U8_OPS[tf], stream), fn)
+                if not torch.equal(out, dp.u8_transform_reference(x, tf)):
+                    raise AssertionError(f"{fn} {tf} n={n} off={off}")
     torch.cuda.synchronize()
+    say(f"K4 byte-equal to its plain version for {', '.join(U8_TRANSFORMS)}"
+        f" at n in {[n for _, n in cases]} (one unaligned start), and with "
+        f"the v1 kernel through the library at (offset, n) in {lib_cases} "
+        f"(in and out at one offset: a scalar head before the vector body)")
     k4 = []
-    for n in (SERVE_STEP, 4096, 1 << 20):
-        x = raw[:n]
+    for n in K4_SIZES:
+        x, out = raw[:n], sink[:n]
+        v1_ms = _kernel_device_ms(
+            torch, lambda: lib.tbus_u8_transform_v1(
+                x.data_ptr(), out.data_ptr(), n, dp.U8_OPS["incr"], stream),
+            200, "u8_transform_v1_kernel")
         ms = _kernel_device_ms(torch, lambda: dp.u8_transform(x, "incr"),
                                200, "u8_transform_kernel")
+        echo_ms = _kernel_device_ms(torch, lambda: dp.u8_transform(x, "echo"),
+                                    200, "u8_transform_kernel")
+        empty_ms = _kernel_device_ms(
+            torch, lambda: lib.tbus_k4_floor_empty(n, stream), 200,
+            "floor_empty_kernel")
+        copy_ms = _kernel_device_ms(
+            torch, lambda: lib.tbus_k4_floor_copy16(x.data_ptr(),
+                                                    out.data_ptr(), n,
+                                                    stream), 200,
+            "floor_copy16_kernel")
         call_ms = _cuda_ms(torch, lambda: dp.u8_transform(x, "incr"), 200)
         plain_ms = _cuda_ms(torch, lambda: dp.u8_transform_reference(
             x, "incr"), 200)
-        lib_ms = {"xor": _cuda_ms(torch, lambda: torch.bitwise_xor(x, 255),
-                                  200),
-                  "add": _cuda_ms(torch, lambda: x + 1, 200),
-                  "clone": _cuda_ms(torch, lambda: x.clone(), 200)}
+        lib_ms = {"add": _device_call_ms(torch, lambda: x + 1, 200),
+                  "xor": _device_call_ms(
+                      torch, lambda: torch.bitwise_xor(x, 255), 200),
+                  "clone": _device_call_ms(torch, lambda: x.clone(), 200)}
         bound_ms = 2 * n / HBM_BYTES_PER_S * 1e3
-        k4.append({"n": n, "ms": ms, "call_ms": call_ms,
+        k4.append({"n": n, "ms": ms, "echo_ms": echo_ms, "v1_ms": v1_ms,
+                   "floor_empty_ms": empty_ms,
+                   "floor_copy16_ms": copy_ms, "call_ms": call_ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms["add"],
                    "library_all_ms": lib_ms, "bound_ms": bound_ms})
-        say(f"K4 u8_transform incr n={n}: {ms * 1e3:.2f} us on the device "
-            f"(bound {bound_ms * 1e3:.3f} us, bytes; "
-            f"{bound_ms / ms * 100:.1f}%); wrapper call {call_ms * 1e3:.2f} "
-            f"us; plain {plain_ms * 1e3:.2f} us; library x+1 "
-            f"{lib_ms['add'] * 1e3:.2f}, bitwise_xor "
-            f"{lib_ms['xor'] * 1e3:.2f}, clone {lib_ms['clone'] * 1e3:.2f} "
-            f"us [{dev['smi']}]")
-    say(f"K4 byte-equal to its plain version for {', '.join(U8_TRANSFORMS)}"
-        f" at n in {[n for _, n in cases]} (one unaligned start)")
-    recs["u8_transform"] = {"max_abs_err": 0, "shapes": k4, **k4[2]}
+        say(f"K4 u8_transform incr n={n}, profiler clock: {ms * 1e3:.3f} us "
+            f"(echo {echo_ms * 1e3:.3f} us; v1 design "
+            f"{v1_ms * 1e3:.3f} us); floor: empty "
+            f"kernel in K4's shape {empty_ms * 1e3:.3f} us, one 16-byte "
+            f"load+store a thread {copy_ms * 1e3:.3f} us; bound "
+            f"{bound_ms * 1e3:.3f} us (bytes; {bound_ms / ms * 100:.1f}%); "
+            f"library x+1 {lib_ms['add'] * 1e3:.3f}, bitwise_xor "
+            f"{lib_ms['xor'] * 1e3:.3f}, clone {lib_ms['clone'] * 1e3:.3f} "
+            f"us; CUDA events: wrapper call {call_ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us [{dev['smi']}]")
+    recs["u8_transform"] = {"max_abs_err": 0, "shapes": k4,
+                            **k4[K4_SIZES.index(1 << 20)]}
 
-    # K5: true f32 against the plain product with TF32 off.
-    k5 = []
+    # K5: against the plain product with TF32 off, at the card tests' k
+    # and on the hard payloads (NaN and +-inf where the plain version has
+    # them; rows of f32 subnormals; rows of very different scales).
     dot_err = 0.0
-    for k in (1, 8, 64, DOT128_K, 4096, 1000):
-        x = torch.from_numpy(rng.standard_normal((k, 128),
-                                                 dtype=np.float32)).cuda()
+    checks = [("normal", k) for k in (1, 2, 7, 8, 17, 64, 1000, DOT128_K,
+                                      4096)]
+    checks += [(kind, k) for kind in ("subnormal", "scales", "nonfinite")
+               for k in (1, 64, DOT128_K)]
+    for kind, k in checks:
+        if kind == "normal":
+            xn = rng.standard_normal((k, 128), dtype=np.float32)
+        else:
+            xn = dp.dot128_payload(kind, k, 100 + k)
+        x = torch.from_numpy(xn).cuda()
         got, want = dp.dot128(x), dp.dot128_reference(x)
-        diff = (got - want).abs()
-        if not bool((diff <= _dot128_tol(torch, x)).all()):
-            raise AssertionError(f"dot128 k={k}: max err {float(diff.max())}")
-        dot_err = max(dot_err, float(diff.max()))
-        if k in (8, DOT128_K):
-            w = dp.dot128_weight("cuda")
-            ms = _kernel_device_ms(torch, lambda: dp.dot128(x), 200,
-                                   "dot128_kernel")
-            plain_ms = _cuda_ms(torch, lambda: dp.dot128_reference(x), 200)
-            with ieee_fp32():
-                lib_ms = _cuda_ms(torch, lambda: torch.matmul(x, w), 200)
-            flops, nbytes = 2.0 * k * 128 * 128, 2 * k * 512
-            bound_ms = max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-            k5.append({"k": k, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": lib_ms, "bound_ms": bound_ms,
-                       "bound_by": ("operations" if flops / F32_FLOPS
-                                    >= nbytes / HBM_BYTES_PER_S
-                                    else "bytes")})
-            say(f"K5 dot128 k={k}: {ms * 1e3:.2f} us on the device (bound "
-                f"{bound_ms * 1e3:.3f} us, {k5[-1]['bound_by']}; "
-                f"{bound_ms / ms * 100:.1f}%); plain {plain_ms * 1e3:.2f} "
-                f"us; torch.matmul f32 (TF32 off) {lib_ms * 1e3:.2f} us "
-                f"[{dev['smi']}]")
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(f(got), f(want)):
+                raise AssertionError(f"dot128 {kind} k={k}: {f.__name__} "
+                                     f"differs")
+        fin = torch.isfinite(want)
+        diff = (got - want).abs()[fin]
+        if not bool((diff <= _dot128_tol(torch, x)[fin]).all()):
+            raise AssertionError(f"dot128 {kind} k={k}: max err "
+                                 f"{float(diff.max())}")
+        if kind == "normal":
+            dot_err = max(dot_err, float(diff.max()))
+        if kind == "subnormal" and int(torch.count_nonzero(got)) <= \
+                got.numel() // 2:
+            raise AssertionError(f"dot128 subnormal k={k}: flushed")
     say(f"K5 within 2*128*2^-24*(|x|@|W|) of its plain version at k in "
-        f"(1, 8, 64, {DOT128_K}, 4096, 1000); max abs err {dot_err:.3g}")
-    recs["dot128"] = {"max_abs_err": dot_err, "shapes": k5, **k5[1]}
+        f"{[k for kind, k in checks if kind == 'normal']} (max abs err "
+        f"{dot_err:.3g}) and on subnormal, mixed-scale and nonfinite rows "
+        f"at k in (1, 64, {DOT128_K}), NaN and inf where it has them")
+    x = torch.from_numpy(rng.standard_normal((DOT128_K, 128),
+                                             dtype=np.float32)).cuda()
+    y = torch.empty_like(x)
+    w = dp.dot128_weight("cuda")
+    ms = _kernel_device_ms(torch, lambda: dp.dot128(x), 200, "dot128_kernel")
+    v1_ms = _kernel_device_ms(
+        torch, lambda: lib.tbus_dot128_v1(x.data_ptr(), y.data_ptr(),
+                                          DOT128_K, stream), 200,
+        "dot128_v1_kernel")
+    plain_ms = _cuda_ms(torch, lambda: dp.dot128_reference(x), 200)
+    with ieee_fp32():
+        lib_ms = _device_call_ms(torch, lambda: torch.matmul(x, w), 200)
+    nbytes = 2 * DOT128_K * 512
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tc_ms = 3 * 2.0 * DOT128_K * 128 * 128 / BF16_TC_FLOPS * 1e3
+    fma_ms = 2.0 * DOT128_K * 128 * 128 / F32_FLOPS * 1e3
+    k5 = {"k": DOT128_K, "ms": ms, "v1_ms": v1_ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+          "tensor_bound_ms": tc_ms, "fma_bound_ms": fma_ms}
+    say(f"K5 dot128 k={DOT128_K}, profiler clock: {ms * 1e3:.3f} us (v1 "
+        f"design {v1_ms * 1e3:.3f} us); bound {bound_ms * 1e3:.3f} us "
+        f"(bytes; {bound_ms / ms * 100:.1f}%; the 3 bf16 tensor passes "
+        f"{tc_ms * 1e3:.3f} us, f32 FMA figure {fma_ms * 1e3:.3f} us); "
+        f"torch.matmul f32 (TF32 off) {lib_ms * 1e3:.3f} us; plain (CUDA "
+        f"events) {plain_ms * 1e3:.2f} us [{dev['smi']}]")
+    recs["dot128"] = {"max_abs_err": dot_err, **k5}
 
     # K6: the chained bf16 product.
     dot_seed = 0.5
@@ -1962,8 +2057,9 @@ def main():
             "library_ms": rec["library_ms"], "shape": shape,
             "detail": rec,
         })
-        if name == "dotbench":
-            kernels[-1]["design"] = "tma_wgmma"
+        kernels[-1]["design"] = {"u8_transform": "latency_shaped",
+                                 "dot128": "split_wgmma",
+                                 "dotbench": "tma_wgmma"}[name]
     kernels.append({
         "name": "fanout", "route": "cuda",
         "source": "tbus_torch/csrc/device_programs.cu",

@@ -6,7 +6,8 @@
 // One stream, opened on the first card. Each program gets its plan once:
 // device buffers for its input and output, pinned host staging for both
 // (cudaHostAlloc, owned here and reused by every run of the program), and
-// for dotbench its padded bf16 scratch. A run is put (H2D of each input
+// for dot128 its bf16 weight scratch (filled once, here), for dotbench
+// its padded bf16 scratch. A run is put (H2D of each input
 // segment) -> exec (the kernel) -> get (D2H of each output segment) on
 // that stream, then a synchronise; the kernels are device_programs.cu's,
 // launched from C++ with no Python on the path. A host pointer given to
@@ -25,7 +26,10 @@
 extern "C" {
 int tbus_u8_transform(const void* in, void* out, long long n, int op,
                       void* stream);
-int tbus_dot128(const void* x, void* y, long long k, void* stream);
+long long tbus_dot128_weight_bytes(void);
+int tbus_dot128_weight(void* w, void* stream);
+int tbus_dot128(const void* x, void* y, long long k, const void* w,
+                void* stream);
 long long tbus_dotbench_padded(long long n);
 long long tbus_dotbench_partial_bytes(void);
 int tbus_dotbench(const void* seed, void* wt, void* v0, void* v1,
@@ -56,7 +60,7 @@ struct Plan {
   void* d_out = nullptr;
   char* h_in = nullptr;
   char* h_out = nullptr;
-  void* wt = nullptr;  // dotbench scratch
+  void* wt = nullptr;  // dot128's weight, dotbench's Wt
   void* v0 = nullptr;
   void* v1 = nullptr;
   void* partial = nullptr;
@@ -160,6 +164,12 @@ void* tbus_cuda_backend_plan(int kernel, int op, long long len,
                             size_t(tbus_dotbench_partial_bytes())),
                  "cudaMalloc", err, cap);
   }
+  if (!bad && kernel == kDot128) {
+    bad = failed(cudaMalloc(&p->wt, size_t(tbus_dot128_weight_bytes())),
+                 "cudaMalloc", err, cap) ||
+          failed(cudaError_t(tbus_dot128_weight(p->wt, g_stream)),
+                 "dot128 weight", err, cap);
+  }
   if (bad) {
     free_plan(p);
     return nullptr;
@@ -196,7 +206,7 @@ int tbus_cuda_backend_exec(void* plan, int wait, char* err, int cap) {
   Plan* p = static_cast<Plan*>(plan);
   int rc;
   if (p->kernel == kDot128) {
-    rc = tbus_dot128(p->d_in, p->d_out, p->len / 512, g_stream);
+    rc = tbus_dot128(p->d_in, p->d_out, p->len / 512, p->wt, g_stream);
   } else if (p->kernel == kDotbench) {
     rc = tbus_dotbench(p->d_in, p->wt, p->v0, p->v1, p->partial, p->d_out,
                        p->n, p->t, p->inv, g_stream);

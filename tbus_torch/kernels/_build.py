@@ -264,7 +264,13 @@ def device_programs_lib() -> ctypes.CDLL:
     """The device plane's programs, K4-K7 (csrc/device_programs.cu)."""
     return _cuda_lib("device_programs", [
         ("tbus_u8_transform", [_VP, _VP, _LL, _I, _VP], _I),
-        ("tbus_dot128", [_VP, _VP, _LL, _VP], _I),
+        ("tbus_u8_transform_v1", [_VP, _VP, _LL, _I, _VP], _I),
+        ("tbus_k4_floor_empty", [_LL, _VP], _I),
+        ("tbus_k4_floor_copy16", [_VP, _VP, _LL, _VP], _I),
+        ("tbus_dot128_weight_bytes", [], _LL),
+        ("tbus_dot128_weight", [_VP, _VP], _I),
+        ("tbus_dot128", [_VP, _VP, _LL, _VP, _VP], _I),
+        ("tbus_dot128_v1", [_VP, _VP, _LL, _VP], _I),
         ("tbus_dotbench_padded", [_LL], _LL),
         ("tbus_dotbench_partial_bytes", [], _LL),
         ("tbus_dotbench",

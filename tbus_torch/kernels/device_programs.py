@@ -5,7 +5,11 @@ their plain PyTorch versions.
   and the echo/xor255/incr bodies of cpp/tpu/pjrt_runtime.cc:191
   ``build_mlir``: u8[n] -> u8[n], copy, ``^ 0xFF`` or ``+ 1 mod 256``.
 - ``dot128`` (K5) replaces pjrt_runtime.cc:207: f32[k, 128] . W in true
-  f32, W[i, j] = ((3i + 5j) mod 11 - 5) / 8 (``dot128_weight``).
+  f32, W[i, j] = ((3i + 5j) mod 11 - 5) / 8 (``dot128_weight``). The
+  kernel runs on the tensor cores over an exact three-term bf16 split of
+  x (``dot128_split_reference`` restates its arithmetic), reading W^T in
+  bf16 from a 32 KiB device scratch built once per device
+  (``dot128_weight_image`` is that scratch's plain version).
 - ``dotbench`` (K6) replaces pjrt_runtime.cc:245 ``dotbench<N>x<T>``: the
   bf16 seed added to A0[i, j] = ((i + j) mod 7 - 3) / 8, T chained bf16
   products with W, each summed in f32 and rounded once, then scaled by
@@ -23,8 +27,10 @@ CUDA tensor and takes the plain version only for a tensor on the CPU.
 from __future__ import annotations
 
 import re
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from tbus_torch.kernels import ieee_fp32
@@ -124,6 +130,145 @@ def dot128_reference(x: torch.Tensor) -> torch.Tensor:
         return x @ dot128_weight(x.device)
 
 
+# K5's warpgroups a block, each over 128 / DOT128_GROUPS of x's columns
+# (csrc/device_programs.cu kDotGroups).
+DOT128_GROUPS = 4
+
+
+def dot128_row_scale(x: torch.Tensor) -> torch.Tensor:
+    """K5's exponent s >= 0 for each row of x (k x 1, int): the least that
+    brings the row's largest |x| to at least 1; 0 for a row there
+    already, all zero, or holding inf or NaN (whose every sum is inf or
+    NaN, whatever the rest)."""
+    m = torch.where(torch.isfinite(x), x.abs(),
+                    torch.full_like(x, float("inf"))).amax(dim=1,
+                                                            keepdim=True)
+    _, e = torch.frexp(m.double())  # m = f * 2^e, f in [0.5, 1)
+    return torch.where((m > 0) & (m < 1), 1 - e, torch.zeros_like(e))
+
+
+def split3_trunc_reference(a: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's split of f32 values into three bf16 terms by truncation
+    (csrc/device_programs.cu split3_trunc): hi = a's upper 16 bits, r = a -
+    hi (exact), mid = r's upper 16 bits, lo = r - mid (exact, at most 8
+    significant bits; its upper 16 bits taken), so hi + mid + lo == a
+    wherever lo is a normal f32 (|a| >= 2^-103). inf splits to (inf, 0, 0),
+    NaN to (NaN, 0, 0)."""
+    a = a.float()
+    fin = torch.isfinite(a)
+
+    def upper(v):
+        return (v.view(torch.int32) & -65536).view(torch.float32)
+
+    hi = torch.where(torch.isnan(a), a, upper(a))
+    r = torch.where(fin, a - upper(a), torch.zeros_like(a))
+    mid = upper(r)
+    lo = upper(r - mid)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
+
+
+def dot128_split_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch restatement of K5's arithmetic (the tensor cores' own
+    f32 addition order aside). For each of the DOT128_GROUPS column
+    blocks of x (one warpgroup's): each row scaled by 2^s (s from
+    dot128_row_scale, exact); split exactly into bf16 terms
+    (split3_trunc_reference); three products of bf16 terms with W's rows
+    in bf16 (exact in f32), each summed in f32, then added smallest first
+    ((lo + mid) + hi); the scale undone with one rounding (in f64, then
+    to f32). The blocks' sums are then added in f32 in order."""
+    _check_dot128(x)
+    w = dot128_weight(x.device).bfloat16().float()
+    width = 128 // DOT128_GROUPS
+    y = None
+    for g in range(DOT128_GROUPS):
+        xg = x[:, g * width:(g + 1) * width]
+        s = dot128_row_scale(xg).double()
+        xs = (xg.double() * torch.pow(2.0, s)).float()
+        wg = w[g * width:(g + 1) * width]
+        hi, mid, lo = split3_trunc_reference(xs)
+        with ieee_fp32():
+            acc = (lo.float() @ wg + mid.float() @ wg) + hi.float() @ wg
+        part = (acc.double() * torch.pow(2.0, -s)).float()
+        y = part if y is None else y + part
+    return y
+
+
+def dot128_payload(kind: str, k: int, seed: int) -> np.ndarray:
+    """K5's hard payloads, f32[k, 128], made from `seed`: "subnormal",
+    rows made only of f32 subnormals (every bit pattern equally likely,
+    either sign); "scales", rows whose values sit near 2^-126, 2^-100,
+    2^0, 2^60 and 2^99 in turn; "nonfinite", finite values below 2^100
+    with +inf, -inf, both, or NaN in turn in every even row."""
+    rng = np.random.default_rng(seed)
+    if kind == "subnormal":
+        bits = rng.integers(1, 1 << 23, (k, 128), dtype=np.uint32)
+        bits |= rng.integers(0, 2, (k, 128), dtype=np.uint32) << 31
+        return bits.view(np.float32)
+    if kind == "scales":
+        e = np.array([-126, -100, 0, 60, 99])[np.arange(k) % 5][:, None]
+        return (rng.standard_normal((k, 128)) * 2.0**e).astype(np.float32)
+    if kind != "nonfinite":
+        raise ValueError(f"unknown payload kind {kind!r}")
+    x = rng.standard_normal((k, 128)) * 2.0 ** rng.uniform(-30, 30, (k, 128))
+    x = np.clip(x, -2.0**99, 2.0**99).astype(np.float32)
+    kinds = ([np.inf], [-np.inf], [np.inf, -np.inf], [np.nan])
+    for r in range(0, k, 2):
+        vals = kinds[(r // 2) % len(kinds)]
+        x[r, rng.choice(128, size=len(vals), replace=False)] = vals
+    return x
+
+
+def dot128_phys(slot: torch.Tensor) -> torch.Tensor:
+    """The k index of x that K5's k slot multiplies (csrc dot128_phys): in
+    each k16 step a thread's A slots 2q, 2q + 1, 2q + 8, 2q + 9 are x's
+    4q .. 4q + 3, one float4 a row."""
+    return (slot & ~15) | ((slot & 6) << 1) | ((slot >> 2) & 2) | (slot & 1)
+
+
+def dot128_weight_image(device="cpu") -> torch.Tensor:
+    """Plain version of K5's weight scratch (tbus_dot128_weight): bf16[16384],
+    four slices of 32 columns j, each two boxes of 64 k slots, each 32 rows
+    (j) of 128 bytes whose 16-byte chunk pc holds the row's logical chunk
+    pc ^ (row % 8) (the 128-byte swizzle); slot s of row j holds
+    W[dot128_phys(s), j]."""
+    e = torch.arange(128 * 128, device=device)
+    ns, kb = e // 4096, (e // 2048) % 2
+    r, pc, el = (e // 64) % 32, (e // 8) % 8, e % 8
+    slot = kb * 64 + (pc ^ (r % 8)) * 8 + el
+    i, j = dot128_phys(slot), ns * 32 + r
+    return ((((3 * i + 5 * j) % 11) - 5).float() * 0.125).bfloat16()
+
+
+_dot128_weights: Dict[int, torch.Tensor] = {}
+_dot128_weights_lock = threading.Lock()
+
+
+def _dot128_weight_scratch(device: torch.device) -> torch.Tensor:
+    """K5's weight scratch on `device`, built by its kernel at first use
+    and kept for the process (finished before any caller's stream reads
+    it)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    w = _dot128_weights.get(index)
+    if w is not None:
+        return w
+    with _dot128_weights_lock:
+        w = _dot128_weights.get(index)
+        if w is None:
+            lib = _lib()
+            with torch.cuda.device(index):
+                w = torch.empty(lib.tbus_dot128_weight_bytes(),
+                                dtype=torch.uint8, device=f"cuda:{index}")
+                stream = torch.cuda.current_stream(w.device)
+                _raise_on(lib.tbus_dot128_weight(w.data_ptr(),
+                                                 stream.cuda_stream),
+                          "dot128 weight")
+                stream.synchronize()
+            _dot128_weights[index] = w
+    return w
+
+
 def dot128(x: torch.Tensor) -> torch.Tensor:
     """f32[k, 128] . W: K5 for a CUDA tensor, the plain version for a CPU
     one."""
@@ -134,9 +279,10 @@ def dot128(x: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16:
         raise ValueError("dot128: x must be 16-byte aligned")
     out = torch.empty_like(x)
+    w = _dot128_weight_scratch(x.device)
     with torch.cuda.device(x.device):
         err = _lib().tbus_dot128(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                 _stream(x))
+                                 w.data_ptr(), _stream(x))
     _raise_on(err, "dot128")
     dot128_launches += 1
     return out

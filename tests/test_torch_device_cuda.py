@@ -7,8 +7,22 @@ there without tests/conftest.py, which imports JAX:
 
     python -m pytest -m cuda --noconftest tests/test_torch_device_cuda.py
 
+K4 runs every branch of its design: the vector body (the wrapper), a
+scalar head before it when both pointers share their offset modulo 16,
+the all-scalar path when they do not, and a size that takes a second
+round of the grid, each with ragged lengths. K5 (the tensor cores over an
+exact bf16 split of x) runs normal payloads, rows made only of f32
+subnormals, rows of very different scales, and NaN and +-inf among
+finite values below 2^100; its weight scratch equals its plain version
+byte for byte, the wrapper and the device runtime run it at once, and
+its SASS holds HGMMA with no spills.
+
 Tolerances: K4 exact bytes. K5 within 2 * 128 * 2^-24 * (|x| @ |W|), the
-gap two f32 sums of 128 products in different orders can open. K6: the
+gap two f32 sums of 128 products in different orders can open (the
+tensor cores' truncating adds, two k-steps in each term's accumulator of
+each of four warpgroups, take a few 2^-23 of |x| @ |W|, inside it;
+tests/test_torch_dot128_split.py), with NaN and +-inf where the plain
+version has them. K6: the
 last matrix within one bf16 ulp per element plus (2^-7 + n * 2^-24) *
 bf16(1/n) * (|v_prev| @ |W|) (an input's one-ulp difference and the f32
 order, carried through the last product); the checksum within (2^-7 +
@@ -16,6 +30,7 @@ n * 2^-24) * sum|v|.
 """
 
 import struct
+import threading
 
 import numpy as np
 import pytest
@@ -53,6 +68,57 @@ def test_u8_transform_matches_plain_version(transform):
                 transform, n, off)
 
 
+# K4's sizes: the path's (4 KiB, 64 KiB, the 256 KiB step, 1 MiB), each
+# with a ragged neighbour, and 16 MiB + 1, past one round of the grid.
+K4_SIZES = [4096, 4096 + 3, 1 << 16, (1 << 16) + 5, 1 << 18, (1 << 18) + 7,
+            1 << 20, (1 << 20) + 9, (16 << 20) + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["vector", "head", "scalar"])
+@pytest.mark.parametrize("transform", ["echo", "xor255", "incr"])
+def test_u8_transform_branches(transform, branch):
+    """Each branch of K4 byte-equal to the plain version: in and out at
+    offsets (0, 0) through the wrapper (the vector body), (off, off) for a
+    scalar head before the vector body, (off, 0) for the all-scalar
+    path."""
+    _need_card()
+    from tbus_torch.kernels import _build
+
+    fn = _build.device_programs_lib().tbus_u8_transform
+    rng = np.random.default_rng(23)
+    raw = torch.from_numpy(rng.integers(0, 256, (16 << 20) + 64,
+                                        dtype=np.uint8)).cuda()
+    sink = torch.empty_like(raw)
+    for n in K4_SIZES:
+        for off in ((0,) if branch == "vector" else (1, 7, 15)):
+            x = raw[off:off + n]
+            if branch == "vector":
+                got = dp.u8_transform(x, transform)
+            else:
+                out_off = 0 if branch == "scalar" else off
+                got = sink[out_off:out_off + n]
+                assert fn(x.data_ptr(), got.data_ptr(), n,
+                          dp.U8_OPS[transform],
+                          torch.cuda.current_stream().cuda_stream) == 0
+            assert torch.equal(got, dp.u8_transform_reference(x, transform)), (
+                branch, transform, n, off)
+
+
+def _dot128_check(x):
+    """K5 against its plain version: NaN and +-inf at the same places,
+    the finite values within 2 * 128 * 2^-24 * (|x| @ |W|)."""
+    got, want = dp.dot128(x), dp.dot128_reference(x)
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(want))
+    with ieee_fp32():
+        tol = 2 * 128 * 2.0**-24 * (x.abs() @ dp.dot128_weight("cuda").abs())
+    fin = torch.isfinite(want)
+    err = (got - want).abs()[fin]
+    assert bool((err <= tol[fin]).all()), float(err.max())
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2, 7, 8, 17, 64, 1000, 2048, 4096])
 def test_dot128_matches_plain_version(k):
@@ -60,11 +126,92 @@ def test_dot128_matches_plain_version(k):
     rng = np.random.default_rng(k)
     x = torch.from_numpy(rng.standard_normal((k, 128),
                                              dtype=np.float32)).cuda()
-    got, want = dp.dot128(x), dp.dot128_reference(x)
-    with ieee_fp32():
-        tol = 2 * 128 * 2.0**-24 * (x.abs() @ dp.dot128_weight("cuda").abs())
-    assert bool(((got - want).abs() <= tol).all()), float(
-        (got - want).abs().max())
+    _dot128_check(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 2048])
+@pytest.mark.parametrize("kind", ["subnormal", "scales", "nonfinite"])
+def test_dot128_hard_payloads(kind, k):
+    _need_card()
+    x = torch.from_numpy(dp.dot128_payload(kind, k, 100 + k)).cuda()
+    got = _dot128_check(x)
+    if kind == "subnormal":
+        assert int(torch.count_nonzero(got)) > got.numel() // 2
+    if kind == "nonfinite":
+        assert bool((~torch.isfinite(got)).any())
+
+
+@pytest.mark.cuda
+def test_dot128_weight_scratch_equals_its_plain_version():
+    _need_card()
+    dp.dot128(torch.zeros((1, 128), device="cuda"))
+    w = dp._dot128_weight_scratch(torch.device("cuda"))
+    assert torch.equal(w, dp.dot128_weight_image("cuda").view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_dot128_wrapper_and_runtime_at_once():
+    """The wrapper (its per-device weight scratch, PyTorch's stream) and
+    the device runtime (its plan's scratch, its own stream, its dispatch
+    thread) run K5 from one library at the same time; every answer
+    holds."""
+    _need_card()
+    import tbus_torch as tt
+
+    tt.device_init("cuda")
+    s = tt.Server()
+    s.add_device_method("DevCuda", "dot128", "dot128")
+    port = s.start(0)
+    rng = np.random.default_rng(77)
+    xs = [rng.standard_normal((k, 128), dtype=np.float32)
+          for k in (8, 64, 2048)]
+    errors = []
+
+    def wrapper_side():
+        try:
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                for i in range(60):
+                    _dot128_check(torch.from_numpy(xs[i % 3]).cuda())
+            side.synchronize()
+        except Exception as e:  # reported below, in the test's thread
+            errors.append(e)
+
+    try:
+        ch = tt.Channel(f"127.0.0.1:{port}", timeout_ms=30000)
+        w = np.abs(dp.dot128_weight().numpy())
+        side = threading.Thread(target=wrapper_side)
+        side.start()
+        for i in range(60):
+            x = xs[i % 3]
+            y = np.frombuffer(ch.call("DevCuda", "dot128", x.tobytes()),
+                              dtype=np.float32).reshape(x.shape)
+            want = dp.dot128_reference(torch.from_numpy(x)).numpy()
+            assert (np.abs(y - want)
+                    <= 2 * 128 * 2.0**-24 * (np.abs(x) @ w)).all(), i
+        side.join(timeout=300)
+        assert not side.is_alive()
+        assert not errors, errors[0]
+    finally:
+        s.stop()
+
+
+@pytest.mark.cuda
+def test_k5_runs_wgmma():
+    """K5's product is wgmma: HGMMA in dot128_kernel's SASS, no HMMA,
+    and no spills in ptxas's report of the build."""
+    _need_card()
+    from tbus_torch.kernels import _build
+
+    dp.dot128(torch.zeros((64, 128), device="cuda"))
+    report = _build.gemm_sass("device_programs", "dot128_kernel")
+    usage = _build.ptxas_usage("device_programs")
+    assert report, "no dot128_kernel in libdevice_programs"
+    for fn, counts in report.items():
+        assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, (fn, counts)
+        assert usage[fn]["spill_stores"] + usage[fn]["spill_loads"] == 0, (
+            fn, usage[fn])
 
 
 @pytest.mark.cuda

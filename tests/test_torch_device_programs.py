@@ -38,7 +38,10 @@ from tbus_torch.kernels import device_programs as dp
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-LENGTHS = [1, 127, 128, 4096, 4097, (1 << 20) + 1]
+# K4's path sizes (4 KiB, 64 KiB shards, the 256 KiB serving step, 1 MiB)
+# and ragged lengths around them and the padding classes.
+LENGTHS = [1, 127, 128, 4096, 4097, 1 << 16, (1 << 16) + 5, 1 << 18,
+           1 << 20, (1 << 20) + 1]
 U8 = ["echo", "xor255", "incr"]
 DOT_K = [1, 8, 64]
 DOTBENCH = [(128, 4), (256, 2)]
