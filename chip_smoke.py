@@ -31,6 +31,13 @@ one execution of K7 (tbus_torch/csrc/device_programs.cu tbus_fanout)
 with no Python on the path, the PartitionChannel scatter, tensor-parallel
 serving over 4 shard servers, and the device stream sink with its bench.
 
+Path 5, the core's C++ load generator and multi-host bring-up: bench_echo
+(tbus_torch.rpc, no Python on its loop) against path 3's server for the
+native echo, K4's methods and K5's dot128, with the tpu:// path's
+per-stage decomposition (stage_stats) and one call's rpcz span; then
+tbus_torch.parallel.distributed.init by coordinator and global_mesh,
+driving path 2's step (K1, K2) at hidden 4096.
+
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
@@ -94,12 +101,26 @@ partitions x 1 MiB; (d) tensor-parallel generate over 4 shard servers,
 fallback_steps 0; (e) bench_device_stream, 256 MiB in 1 MiB chunks,
 xor255, echo on, every chunk counted by the sink; each with the DMA
 tripwires and donation/alias hits; (xvii) path 4 again in a child with
-DMA registration off. Any failure exits nonzero; the last line is the
+DMA registration off; (xviii) path 5a, run after (xiii) while path 3's
+server is up, with the runtime's launch counts reset before and read
+after: bench_echo for 1 s a leg at 4 KiB and 1 MiB against the native
+echo, Echo and Xor (K4) and Dot (K5, 1 MiB only), in this process over
+TCP at concurrency 1 (beside phase xii's Python-loop p50) and from a
+child process over TCP and tpu:// at concurrency 1 and 8 (qps, p50, p99,
+p999; dot128's GFLOP/s), each tpu:// leg with both processes'
+stage_stats hops, K4's and K5's launches at least the calls each leg
+completed, one traced call's client and server rpcz spans, and the
+wires and surfaces that fail on the card's core; (xix) path 5b:
+init("127.0.0.1:<port>", 1, 0), global_mesh(("dp", "tp")) and the
+fan-out step at hidden 4096 x rows 4096, equal bit for bit to the step
+on default_mesh(1), with its wall p50 and the K1 and K2 counts reset
+before and read after. Any failure exits nonzero; the last line is the
 device JSON only on success.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
 
+import ctypes
 import json
 import math
 import os
@@ -902,7 +923,7 @@ def phase_entry(torch, dev, tmp):
     from tbus_torch.parallel import collective, distributed
 
     # The same step on the CPU's plain path (a one-rank gloo group).
-    distributed.init(0, 1, os.path.join(tmp, "store_cpu"), "gloo")
+    distributed.init_store(0, 1, os.path.join(tmp, "store_cpu"), "gloo")
     try:
         step, (w, x) = entry.entry("cpu")
         cpu_losses, cpu_w1 = _run_steps(step, w, x, 1)
@@ -910,7 +931,7 @@ def phase_entry(torch, dev, tmp):
     finally:
         distributed.shutdown()
 
-    distributed.init(0, 1, os.path.join(tmp, "store_cuda"), "nccl")
+    distributed.init_store(0, 1, os.path.join(tmp, "store_cuda"), "nccl")
     try:
         # The main path's run: every count starts at 0 here.
         gemm.matmul_launches = gemm.dw_launches = rf.launches = 0
@@ -1917,6 +1938,338 @@ def path4_child(mode):
     return 0
 
 
+# ---- path 5: the core's load generator and global_mesh on the card ----
+
+GEN_MS = 1000  # one generator leg
+GEN_CELLS = [("Plain", "4KiB"), ("Plain", "1MiB"), ("Echo", "4KiB"),
+             ("Echo", "1MiB"), ("Xor", "4KiB"), ("Xor", "1MiB"),
+             ("Dot", "1MiB")]  # Dot at 1 MiB only, as bench.py:282-291
+GEN_CONC = (1, 8)
+GEN_WIRES = ("http", "h2", "grpc", "thrift", "nshead")
+# The runtime's kernel each device method launches once a call.
+GEN_KERNEL = {"Echo": "u8_transform", "Xor": "u8_transform",
+              "Dot": "dot128"}
+DOT128_FLOPS = 2.0 * ((1 << 20) // 512) * 128 * 128  # bench.py:290
+
+
+def _gen_leg(rpc, addr, method, key, conc):
+    return rpc.bench_echo(addr, SIZES[key], conc, GEN_MS,
+                          service="DevService", method=method)
+
+
+def _hops(stats, before=None):
+    """The tpu:// hops a stage_stats() snapshot holds: the count since
+    `before` and p50/p99 (ns) over the recorder's recent samples."""
+    out = {}
+    for name, st in stats.items():
+        if not name.startswith("tbus_shm_stage_") or "_lane" in name:
+            continue
+        n = st["count"] - (before or {}).get(name, {}).get("count", 0)
+        if n > 0:
+            out[name[len("tbus_shm_stage_"):]] = {
+                "count": n, "p50_ns": st["p50_ns"], "p99_ns": st["p99_ns"]}
+    return out
+
+
+def _ctl_handler(body):
+    """The device server process's side of the generator child's legs:
+    its stage_stats and launch counts, and rpcz switched on for a traced
+    leg and off again, with the server spans of the traces the child
+    names."""
+    from tbus_torch import rpc
+
+    if body == b"rpcz:1":
+        rpc.rpcz_enable(True)
+        return b"{}"
+    if body.startswith(b"rpcz:0:"):  # off, and the spans of these traces
+        ids = set(body[len(b"rpcz:0:"):].decode().split(","))
+        spans = [sp for sp in rpc.rpcz_dump_json()
+                 if sp["side"] == "server" and sp["trace_id"] in ids]
+        rpc.rpcz_enable(False)
+        return json.dumps({"spans": spans}).encode()
+    return json.dumps({"stages": rpc.stage_stats(),
+                       "launches": rpc.device_stats()["launches"]}).encode()
+
+
+# A traced call's hops, in order: (name, from, to), each stamp a
+# ("client" | "server", stage) of the call's two rpcz spans ("start" and
+# "end" are the client span's own ends). Their sum is the call's latency.
+SPAN_HOPS = [
+    ("issue_to_publish", ("client", "start"), ("client", "send_publish")),
+    ("publish_to_ring", ("client", "send_publish"), ("client", "send_ring")),
+    ("ring_to_server_pickup", ("client", "send_ring"), ("server", "rx_pickup")),
+    ("pickup_to_dispatch", ("server", "rx_pickup"), ("server", "dispatch")),
+    ("dispatch_to_done", ("server", "dispatch"), ("server", "done")),
+    ("done_to_resp_publish", ("server", "done"), ("server", "resp_publish")),
+    ("resp_publish_to_client_pickup", ("server", "resp_publish"),
+     ("client", "resp_pickup")),
+    ("pickup_to_wakeup", ("client", "resp_pickup"), ("client", "wakeup")),
+    ("wakeup_to_end", ("client", "wakeup"), ("client", "end")),
+]
+
+
+def _span_hops(pairs):
+    """p50 and p90 (us) of each hop over the traced calls, and their
+    count (calls whose spans carry every stamp)."""
+    per_hop = {name: [] for name, _, _ in SPAN_HOPS}
+    total, n = [], 0
+    for client, server in pairs:
+        ns = {("client", "start"): client["start_us"] * 1000,
+              ("client", "end"): client["end_us"] * 1000}
+        for side, sp in (("client", client), ("server", server)):
+            ns.update({(side, st["stage"]): st["ns"] for st in sp["stages"]})
+        if not all(a in ns and b in ns for _, a, b in SPAN_HOPS):
+            continue
+        n += 1
+        for name, a, b in SPAN_HOPS:
+            per_hop[name].append((ns[b] - ns[a]) / 1e3)
+        total.append(client["latency_us"])
+    if n == 0:
+        return {"calls": 0}
+    out = {name: {"p50_us": float(np.percentile(v, 50)),
+                  "p90_us": float(np.percentile(v, 90))}
+           for name, v in per_hop.items()}
+    out["total"] = {"p50_us": float(np.percentile(total, 50)),
+                    "p90_us": float(np.percentile(total, 90))}
+    out["calls"] = n
+    return out
+
+
+def gen_child(port, ctl_port):
+    """Entry of path 5a's generator process: bench_echo legs against the
+    device server over loopback TCP and over tpu:// (the shm fabric
+    between two processes, whose hops stage_stats decomposes), traced
+    tpu:// legs whose rpcz spans decompose each call, and the core's
+    wires probed; the last line is its JSON."""
+    from tbus_torch import _native, rpc
+
+    rpc.init()
+    ctl = rpc.Channel(f"127.0.0.1:{ctl_port}", timeout_ms=30000)
+
+    def server(cmd=b"stats"):
+        return json.loads(ctl.call("Ctl", "Stats", cmd))
+
+    legs = []
+    for transport in ("tcp", "tpu"):
+        addr = (f"tpu://127.0.0.1:{port}" if transport == "tpu"
+                else f"127.0.0.1:{port}")
+        for method, key in GEN_CELLS:
+            for conc in GEN_CONC:
+                s0, c0 = server(), rpc.stage_stats()
+                r = _gen_leg(rpc, addr, method, key, conc)
+                s1, c1 = server(), rpc.stage_stats()
+                leg = dict(r, transport=transport, proc="child",
+                           method=method, size=key, conc=conc,
+                           launches={k: s1["launches"][k] - s0["launches"][k]
+                                     for k in ("u8_transform", "dot128")})
+                if transport == "tpu":
+                    leg["client_hops"] = _hops(c1, c0)
+                    leg["server_hops"] = _hops(s1["stages"], s0["stages"])
+                legs.append(leg)
+    # Traced legs: rpcz on in both processes, each tpu:// cell at c=1
+    # paced to 150 calls/s (each call finds the threads parked, unlike a
+    # back-to-back leg) (under rpcz's sampling budget of 1000 spans/s,
+    # and within the 64 newest spans the core returns), so every call is
+    # traced on both sides; a call's client and server spans share its
+    # trace id, and their stamps share the host's clock.
+    tpu = f"tpu://127.0.0.1:{port}"
+    traced, seen = [], set()
+    for method, key in GEN_CELLS:
+        # The same paced leg untraced first: what rpcz adds to a call.
+        paced = rpc.bench_echo(tpu, SIZES[key], 1, 300, qps=150.0,
+                               service="DevService", method=method)
+        server(b"rpcz:1")
+        rpc.rpcz_enable(True)
+        rpc.bench_echo(tpu, SIZES[key], 1, 300, qps=150.0,
+                       service="DevService", method=method)
+        rpc.rpcz_enable(False)
+        client = [sp for sp in rpc.rpcz_dump_json()
+                  if sp["side"] == "client" and sp["method"] == method
+                  and sp["trace_id"] not in seen]
+        seen.update(sp["trace_id"] for sp in client)
+        ids = ",".join(sp["trace_id"] for sp in client).encode()
+        servers = {sp["trace_id"]: sp
+                   for sp in server(b"rpcz:0:" + ids)["spans"]}
+        pairs = [(c, servers[c["trace_id"]]) for c in client
+                 if c["trace_id"] in servers]
+        traced.append({"method": method, "size": key,
+                       "untraced_p50_us": paced["p50_us"],
+                       "hops": _span_hops(pairs),
+                       "example": list(pairs[0]) if pairs else None})
+    # What of this slice does not work on this core, said by trying it.
+    failing = []
+    for wire in GEN_WIRES:
+        try:
+            rpc.bench_echo(f"127.0.0.1:{port}", 4096, 1, 100, protocol=wire,
+                           service="DevService", method="Plain")
+        except RuntimeError as e:
+            failing.append(f"bench_echo(protocol={wire!r}): {e}")
+    try:
+        rpc.trace_perfetto()
+    except (RuntimeError, ValueError) as e:
+        failing.append(f"trace_perfetto: {e}")
+    try:
+        ctypes.CDLL("libssl.so.3")
+    except OSError:
+        failing.append("enable_ssl: libssl.so.3 is not loadable (TLS "
+                       "off in the core)")
+    say(json.dumps({"legs": legs, "traced": traced, "failing": failing,
+                    "core": _native.core_flavor()}))
+    return 0
+
+
+def _say_leg(dev, leg, py_lat):
+    tf = DEVICE_METHODS.get(leg["method"], "native echo")
+    py = py_lat.get(f"{leg['method']}/{leg['size']}")
+    extra = ""
+    if leg["method"] == "Dot":
+        extra = (f", dot128 {leg['qps'] * DOT128_FLOPS / 1e9:.1f} GFLOP/s "
+                 f"sustained")
+    say(f"5a {leg['proc']} {leg['transport']} {leg['method']} ({tf}) "
+        f"{leg['size']} c={leg['conc']}: qps {leg['qps']:.0f}, p50 "
+        f"{leg['p50_us']:.0f} us, p99 {leg['p99_us']:.0f} us, p999 "
+        f"{leg['p999_us']:.0f} us{extra}; Python loop p50 "
+        f"{py['p50_us']:.0f} us (phase xii, in process, TCP, c=1) "
+        f"[{dev['smi']}]")
+    for side in ("client", "server"):
+        hops = leg.get(f"{side}_hops")
+        if hops:
+            say(f"    {side} hops (ns p50/p99, count): " + ", ".join(
+                f"{h} {v['p50_ns']}/{v['p99_ns']} x{v['count']}"
+                for h, v in hops.items()))
+
+
+def _check_leg_launches(leg):
+    """A device method's kernel ran at least once for every call the
+    generator completed (qps x the leg's time is a floor of that)."""
+    kernel = GEN_KERNEL.get(leg["method"])
+    completed = int(leg["qps"] * GEN_MS / 1000)
+    if kernel and leg["launches"][kernel] < completed:
+        raise AssertionError(
+            f"5a {leg['transport']} {leg['method']} {leg['size']} "
+            f"c={leg['conc']}: {leg['launches'][kernel]} {kernel} launches "
+            f"for >= {completed} completed calls")
+    return completed
+
+
+def phase_generator(dev, port, py_lat):
+    phase("main path 5a: the core's C++ load generator against path 3's "
+          "server (loopback TCP and tpu://)")
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    ctl = tt.Server()
+    ctl.add_method("Ctl", "Stats", _ctl_handler)
+    ctl_port = ctl.start(0)
+    # The main path's run: every count starts at 0 here.
+    rpc.reset_device_launches()
+    try:
+        legs = []
+        for method, key in GEN_CELLS:  # in this process, as phase xii
+            before = rpc.device_stats()["launches"]
+            r = _gen_leg(rpc, f"127.0.0.1:{port}", method, key, 1)
+            after = rpc.device_stats()["launches"]
+            legs.append(dict(r, transport="tcp", proc="in-process",
+                             method=method, size=key, conc=1,
+                             launches={k: after[k] - before[k]
+                                       for k in ("u8_transform", "dot128")}))
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--gen-child",
+             str(port), str(ctl_port)], capture_output=True, text=True,
+            timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"the generator child failed:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        launches = rpc.device_stats()["launches"]
+    finally:
+        ctl.stop()
+    legs += child["legs"]
+    completed = {"u8_transform": 0, "dot128": 0}
+    for leg in legs:
+        _say_leg(dev, leg, py_lat)
+        n = _check_leg_launches(leg)
+        if leg["method"] in GEN_KERNEL:
+            completed[GEN_KERNEL[leg["method"]]] += n
+        if leg["transport"] == "tpu" and not (
+                leg["client_hops"] and leg["server_hops"]):
+            raise AssertionError(f"5a tpu:// leg without stage hops: {leg}")
+    say(f"launches on path 5a: {json.dumps(launches)} (completed device "
+        f"calls >= {json.dumps(completed)})")
+    for cell in child["traced"]:
+        hops = cell["hops"]
+        if hops["calls"] < 1:
+            raise AssertionError(f"5a: no traced call of {cell['method']} "
+                                 f"{cell['size']} has both spans whole")
+        say(f"5a traced tpu:// {cell['method']} "
+            f"({DEVICE_METHODS.get(cell['method'], 'native echo')}) "
+            f"{cell['size']} c=1, {hops['calls']} calls, hop p50 us "
+            f"(p90): " + ", ".join(
+                f"{name} {hops[name]['p50_us']:.1f} "
+                f"({hops[name]['p90_us']:.1f})"
+                for name, _, _ in SPAN_HOPS)
+            + f"; call p50 {hops['total']['p50_us']:.0f} us traced, "
+            f"{cell['untraced_p50_us']:.0f} us untraced at the same pace "
+            f"[{dev['smi']}]")
+    client, server = child["traced"][2]["example"]  # Echo 4KiB
+    for side, span in (("client", client), ("server", server)):
+        say(f"rpcz {side} span, DevService.Echo 4KiB over tpu://: "
+            f"{json.dumps(span)}")
+    say(f"core flavour of the generator: {child['core']}; failing there: "
+        f"{json.dumps(child['failing'])}")
+    return launches
+
+
+def phase_global_mesh(torch, dev):
+    phase("main path 5b: init by coordinator, global_mesh, and the fan-out "
+          f"step at hidden {HIDDEN}")
+    import socket
+
+    from tbus_torch import entry
+    from tbus_torch.kernels import gemm
+    from tbus_torch.parallel import collective, distributed
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    distributed.init(coordinator, 1, 0)
+    try:
+        mesh = distributed.global_mesh(("dp", "tp"))
+        if tuple(mesh.mesh.shape) != (1, 1) or mesh.device_type != "cuda":
+            raise AssertionError(f"global_mesh on one card: {mesh}")
+        # The main path's run: every count starts at 0 here.
+        gemm.matmul_launches = gemm.dw_launches = 0
+        step, (w, x) = entry._make(mesh, hidden=HIDDEN, rows=HIDDEN)
+        loss, w1 = step(w, x)
+        wall = _wall_p50_us(torch, lambda: step(w, x), 10)
+        torch.cuda.synchronize()
+        counts = {"matmul_bf16_f32": gemm.matmul_launches,
+                  "dw_f32_bf16": gemm.dw_launches}
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"path 5b missed a kernel: {counts}")
+        ref, (rw, rx) = entry._make(collective.default_mesh(1, "cuda"),
+                                    hidden=HIDDEN, rows=HIDDEN)
+        want_loss, want_w1 = ref(rw, rx)
+        if not (torch.equal(w, rw) and torch.equal(x, rx)
+                and torch.equal(loss, want_loss)
+                and torch.equal(w1, want_w1)):
+            raise AssertionError("the step on global_mesh differs from "
+                                 "path 2's on default_mesh")
+    finally:
+        distributed.shutdown()
+    say(f"global_mesh(('dp', 'tp')) after init({coordinator!r}, 1, 0): "
+        f"shape (1, 1) on cuda; hidden {HIDDEN} x rows {HIDDEN} step loss "
+        f"{float(loss)} and w1 equal path 2's step on default_mesh bit for "
+        f"bit; wall p50 {wall:.0f} us (host clock, n=10); launches "
+        f"{json.dumps(counts)} [{dev['smi']}]")
+    say("one card holds one NCCL rank: the multi-process global_mesh job "
+        "(8 gloo ranks in 2 simulated hosts) runs in the CPU tests, "
+        "tests/test_torch_global_mesh.py")
+    return counts
+
+
 def main():
     import torch
 
@@ -1946,10 +2299,12 @@ def main():
     say(f"DMA table at runtime start: {json.dumps(rpc.device_dma_stats())}")
     server, port = _device_server()
     try:
-        dm_launches, _, _ = phase_device_methods(torch, dev, port)
+        dm_launches, dm_lat, _ = phase_device_methods(torch, dev, port)
         serve_launches, _ = phase_serving(torch, dev, port)
+        gen_launches = phase_generator(dev, port, dm_lat)
     finally:
         server.stop()
+    mesh_counts = phase_global_mesh(torch, dev)
     torch_leg = phase_rpc_leg(dev)
     # Path 4's run: every count starts at 0 here.
     rpc.reset_device_launches()
@@ -2009,7 +2364,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tbus_torch/csrc/gemm_bf16.cu", "replaces": replaces,
-            "launches": counts[name], "match": True,
+            "launches": counts[name] + mesh_counts[name], "match": True,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -2039,7 +2394,8 @@ def main():
         "dtypes": fold_recs,
     })
     # Path 3's kernels: launches are the runtime's own counts over path 3a
-    # (device methods) plus 3b (serving), each run from 0.
+    # (device methods), 3b (serving) and 5a (the generator), each run
+    # from 0.
     for name, replaces, shape in (
             ("u8_transform", "cpp/tpu/serve_engine.cc:28", [1 << 20]),
             ("dot128", "cpp/tpu/pjrt_runtime.cc:207", [DOT128_K, 128]),
@@ -2049,7 +2405,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "tbus_torch/csrc/device_programs.cu",
             "replaces": replaces,
-            "launches": dm_launches[name] + serve_launches[name],
+            "launches": (dm_launches[name] + serve_launches[name]
+                         + gen_launches[name]),
             "match": True, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
@@ -2079,8 +2436,12 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = path4_child(sys.argv[2]) if sys.argv[1:2] == [
-            "--path4-child"] else main()
+        if sys.argv[1:2] == ["--path4-child"]:
+            code = path4_child(sys.argv[2])
+        elif sys.argv[1:2] == ["--gen-child"]:
+            code = gen_child(int(sys.argv[2]), int(sys.argv[3]))
+        else:
+            code = main()
     except Exception:
         traceback.print_exc()
         code = 1

@@ -51,6 +51,11 @@ _ENV_LIB = "TBUS_LIB"
 HANDLER_FN = ctypes.CFUNCTYPE(
     None, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p
 )
+# Progressive-reader piece callback (tbus_call_progressive): data is a
+# c_void_p for the same reason.
+PIECE_FN = ctypes.CFUNCTYPE(
+    None, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t
+)
 
 
 def _stale(lib: str, sources: List[str]) -> bool:
@@ -174,6 +179,12 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def has_symbol(L: ctypes.CDLL, name: str) -> bool:
+    """Whether the loaded core exports `name` (a prebuilt core named by
+    TBUS_LIB may predate it)."""
+    return getattr(L, name, None) is not None
+
+
 def _annotate(L: ctypes.CDLL) -> None:
     c_void_p, c_char_p, c_int = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int
     L.tbus_init.argtypes = [c_int]
@@ -273,3 +284,98 @@ def _annotate(L: ctypes.CDLL) -> None:
     L.tbus_fi_set.restype = c_int
     L.tbus_fi_disable_all.argtypes = []
     L.tbus_fi_disable_all.restype = None
+    L.tbus_fi_set_seed.argtypes = [ull]
+    L.tbus_fi_set_seed.restype = None
+    L.tbus_fi_get_seed.argtypes = []
+    L.tbus_fi_get_seed.restype = ull
+    L.tbus_fi_injected.argtypes = [c_char_p]
+    L.tbus_fi_injected.restype = ll
+    L.tbus_fi_probe.argtypes = [c_char_p, c_int,
+                                ctypes.POINTER(ctypes.c_ubyte)]
+    L.tbus_fi_probe.restype = c_int
+    L.tbus_fi_dump.argtypes = []
+    L.tbus_fi_dump.restype = c_void_p
+    L.tbus_flag_get.argtypes = [c_char_p, ctypes.POINTER(ll)]
+    L.tbus_flag_get.restype = ll
+    L.tbus_flag_domain_json.argtypes = []
+    L.tbus_flag_domain_json.restype = c_void_p
+    L.tbus_connections_dump.argtypes = []
+    L.tbus_connections_dump.restype = c_void_p
+    L.tbus_budget_breakdown_json.argtypes = [c_char_p, ctypes.c_size_t]
+    L.tbus_budget_breakdown_json.restype = c_void_p
+
+    # Per-stage timing and tracing: rpcz spans, the tpu:// stage clock,
+    # mesh-wide span export.
+    L.tbus_rpcz_enable.argtypes = [c_int]
+    L.tbus_rpcz_enable.restype = None
+    for name in ("tbus_rpcz_dump", "tbus_rpcz_dump_json",
+                 "tbus_stage_stats_json", "tbus_timeline_dump",
+                 "tbus_trace_perfetto_json", "tbus_trace_stats_json"):
+        getattr(L, name).argtypes = []
+        getattr(L, name).restype = c_void_p
+    L.tbus_trace_set_collector.argtypes = [c_char_p]
+    L.tbus_trace_set_collector.restype = c_int
+    L.tbus_trace_flush.argtypes = []
+    L.tbus_trace_flush.restype = c_int
+    L.tbus_trace_query_json.argtypes = [c_char_p]
+    L.tbus_trace_query_json.restype = c_void_p
+
+    # Transport counters: shm lanes and zero-copy frames, fd loops.
+    L.tbus_shm_lanes.argtypes = []
+    L.tbus_shm_lanes.restype = c_int
+    L.tbus_shm_zero_copy_frames.argtypes = []
+    L.tbus_shm_zero_copy_frames.restype = ll
+    L.tbus_shm_payload_copy_bytes.argtypes = []
+    L.tbus_shm_payload_copy_bytes.restype = ll
+    L.tbus_fd_loops.argtypes = []
+    L.tbus_fd_loops.restype = c_int
+    L.tbus_fd_rtc_max_bytes.argtypes = []
+    L.tbus_fd_rtc_max_bytes.restype = ll
+
+    # Server options and mounts beyond echo and Python methods.
+    L.tbus_server_add_sleep.argtypes = [c_void_p, c_char_p, c_char_p, ll]
+    L.tbus_server_add_sleep.restype = c_int
+    L.tbus_server_enable_ssl.argtypes = [c_void_p, c_char_p, c_char_p]
+    L.tbus_server_enable_ssl.restype = None
+    L.tbus_server_usercode_in_pthread.argtypes = [c_void_p]
+    L.tbus_server_usercode_in_pthread.restype = None
+    L.tbus_server_set_limiter.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_char_p]
+    L.tbus_server_set_limiter.restype = c_int
+    L.tbus_server_set_limiter_ex.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_char_p, c_char_p]
+    L.tbus_server_set_limiter_ex.restype = c_int
+    L.tbus_server_enable_trace_sink.argtypes = [c_void_p]
+    L.tbus_server_enable_trace_sink.restype = c_int
+    L.tbus_server_drain.argtypes = [c_void_p, ll]
+    L.tbus_server_drain.restype = c_int
+    L.tbus_server_add_stream_sink.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_int]
+    L.tbus_server_add_stream_sink.restype = c_int
+    L.tbus_stream_accept.argtypes = [c_void_p, ll, c_int]
+    L.tbus_stream_accept.restype = ull
+    L.tbus_call_progressive.argtypes = [
+        c_void_p, c_char_p, c_char_p, c_char_p, ctypes.c_size_t, ll,
+        PIECE_FN, c_void_p, c_char_p]
+    L.tbus_call_progressive.restype = c_int
+
+    # The core's load generators (no Python on their hot loops).
+    p_dbl, p_ll = ctypes.POINTER(dbl), ctypes.POINTER(ll)
+    L.tbus_bench_echo.argtypes = [
+        c_char_p, ctypes.c_size_t, c_int, c_int, *[p_dbl] * 4]
+    L.tbus_bench_echo.restype = c_int
+    L.tbus_bench_echo_ex.argtypes = [
+        c_char_p, ctypes.c_size_t, c_int, c_int, dbl, *[p_dbl] * 5]
+    L.tbus_bench_echo_ex.restype = c_int
+    if has_symbol(L, "tbus_bench_echo_proto"):
+        L.tbus_bench_echo_proto.argtypes = [
+            c_char_p, c_char_p, c_char_p, c_char_p, ctypes.c_size_t, c_int,
+            c_int, dbl, *[p_dbl] * 5]
+        L.tbus_bench_echo_proto.restype = c_int
+    L.tbus_bench_echo_overload.argtypes = [
+        c_char_p, c_char_p, c_char_p, ctypes.c_size_t, c_int, c_int, dbl,
+        ll, *[p_dbl] * 3, *[p_ll] * 4]
+    L.tbus_bench_echo_overload.restype = c_int
+    L.tbus_bench_stream.argtypes = [
+        c_char_p, c_char_p, c_char_p, ll, ll, *[p_dbl] * 3, p_ll, c_char_p]
+    L.tbus_bench_stream.restype = c_int

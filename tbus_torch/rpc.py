@@ -11,10 +11,17 @@ token streams, the serving bench and its stats; the C++ device plane
 of the block pool (:func:`device_enable_dma`), ``Server.add_device_method``,
 ``Server.add_generate_method`` (with ``peers``, tensor-parallel) and
 ``Server.add_device_stream_sink`` with :func:`bench_device_stream`, whose
-device work runs on the runtime's own dispatch thread; and the core's
-flags, variables and fault sites. Server handlers registered from Python
-run inside fibers on the native worker fleet; ctypes re-acquires the GIL
-per callback.
+device work runs on the runtime's own dispatch thread; the core's C++
+load generators (:func:`bench_echo`, :func:`bench_echo_overload`,
+:func:`bench_stream`), the tpu:// per-stage timing (:func:`stage_stats`,
+:func:`timeline_dump`), rpcz spans and mesh-wide tracing, the transport
+counters; and the core's flags, variables and fault sites. Server
+handlers registered from Python run inside fibers on the native worker
+fleet; ctypes re-acquires the GIL per callback.
+
+On the protobuf-free core (``_native.core_flavor()``) what needs
+libprotobuf fails with the core's own message; nothing takes another
+path in its place.
 """
 
 from __future__ import annotations
@@ -47,6 +54,13 @@ def _take_str(p: Optional[int]) -> str:
         return ctypes.string_at(p).decode()
     finally:
         _native.lib().tbus_buf_free(ctypes.cast(p, ctypes.c_char_p))
+
+
+def _native_str(symbol: str) -> str:
+    """The text a core function returns (malloc'd), freed here."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return _take_str(getattr(L, symbol)())
 
 
 # ---- the device runtime (tbus_torch/csrc/cuda_runtime.cc) ----
@@ -251,6 +265,271 @@ def fi_disable_all() -> None:
     L = _native.lib()
     L.tbus_init(0)
     L.tbus_fi_disable_all()
+
+
+def fi_set_seed(seed: int) -> None:
+    """Sets the replay seed: every site's decisions are a pure function of
+    (seed, site, draw index). Rewinds all draw counters."""
+    L = _native.lib()
+    L.tbus_init(0)
+    L.tbus_fi_set_seed(seed)
+
+
+def fi_injected(site: str) -> int:
+    """Faults injected at `site` so far (-1: unknown site)."""
+    return _native.lib().tbus_fi_injected(site.encode())
+
+
+def fi_probe(site: str, n: int) -> bytes:
+    """Evaluates `site` n times and returns the 0/1 decision bytes (same
+    seed and schedule, same bytes)."""
+    L = _native.lib()
+    out = (ctypes.c_ubyte * n)()
+    if L.tbus_fi_probe(site.encode(), n, out) != 0:
+        raise ValueError(f"unknown fault site: {site!r}")
+    return bytes(out)
+
+
+def fi_dump() -> str:
+    """The /faults console page body (every site's arm state and counts)."""
+    return _native_str("tbus_fi_dump")
+
+
+def flag_get(name: str) -> int:
+    """Current value of a runtime-reloadable flag."""
+    L = _native.lib()
+    L.tbus_init(0)
+    out = ctypes.c_longlong(0)
+    if L.tbus_flag_get(name.encode(), ctypes.byref(out)) != 0:
+        raise ValueError(f"unknown flag: {name!r}")
+    return out.value
+
+
+def flag_domains() -> list:
+    """Declared tunable domains: [{name, value, min, max, step, log,
+    ladder}, ...]."""
+    return json.loads(_native_str("tbus_flag_domain_json"))
+
+
+def connections_dump() -> str:
+    """Live-socket snapshot (the /connections page body; '[tpu]' marks
+    native-transport sockets)."""
+    return _native_str("tbus_connections_dump")
+
+
+def budget_breakdown(echo_bytes: bytes) -> dict:
+    """Decodes raw budget-echo bytes (response meta field 20) into the
+    nested per-hop breakdown: {"hop", "queue_us", "handler_us",
+    "total_us", "budget_us", "children": [{"callee", "observed_us",
+    "echo": {...} | None}, ...]}. Raises ValueError on malformed
+    bytes."""
+    L = _native.lib()
+    out = json.loads(_take_str(
+        L.tbus_budget_breakdown_json(echo_bytes, len(echo_bytes))))
+    if out is None:
+        raise ValueError("malformed or empty budget echo")
+    return out
+
+
+# ---- the core's C++ load generators (no Python on their loops) ----
+
+def bench_echo(addr: str, payload: int = 1 << 20, concurrency: int = 8,
+               duration_ms: int = 2000, qps: float = 0.0,
+               protocol: str = "", service: str = "",
+               method: str = "") -> dict:
+    """The core's echo load loop: `concurrency` fibers, each on its own
+    connection, issue back-to-back calls of `payload` bytes for
+    duration_ms; qps > 0 paces issue with a token bucket. protocol picks
+    the client wire ("tbus_std" default, "http", "h2", "grpc", "thrift",
+    "nshead"); service/method override the default EchoService.Echo
+    target (a device method, say). Returns qps, MBps (one direction) and
+    p50/p99/p999 latency in us over the successful calls."""
+    L = _native.lib()
+    L.tbus_init(0)
+    out = [ctypes.c_double() for _ in range(5)]
+    refs = [ctypes.byref(v) for v in out]
+    if _native.has_symbol(L, "tbus_bench_echo_proto"):
+        rc = L.tbus_bench_echo_proto(
+            addr.encode(), protocol.encode(), service.encode(),
+            method.encode(), payload, concurrency, duration_ms, qps, *refs)
+    elif protocol or service or method:
+        raise RuntimeError(
+            "this libtbus.so predates tbus_bench_echo_proto; rebuild it "
+            "to use protocol/service/method")
+    else:
+        rc = L.tbus_bench_echo_ex(addr.encode(), payload, concurrency,
+                                  duration_ms, qps, *refs)
+    if rc != 0:
+        raise RuntimeError(f"bench_echo failed: {rc}")
+    return dict(zip(("qps", "MBps", "p50_us", "p99_us", "p999_us"),
+                    (v.value for v in out)))
+
+
+def bench_echo_overload(addr: str, service: str = "", method: str = "",
+                        payload: int = 64, concurrency: int = 16,
+                        duration_ms: int = 2000, qps: float = 0.0,
+                        timeout_ms: int = 100) -> dict:
+    """The core's overload loop: offered load past capacity on purpose,
+    every request carrying timeout_ms as its wire deadline, no retries.
+    Returns goodput qps and p50/p99 over the successes, and the failure
+    split: shed (server-side ELIMIT + EDEADLINEPASSED), timedout (client
+    deadline), other."""
+    L = _native.lib()
+    L.tbus_init(0)
+    dbl = [ctypes.c_double() for _ in range(3)]
+    cnt = [ctypes.c_longlong() for _ in range(4)]
+    rc = L.tbus_bench_echo_overload(
+        addr.encode(), service.encode(), method.encode(), payload,
+        concurrency, duration_ms, qps, timeout_ms,
+        *[ctypes.byref(v) for v in dbl], *[ctypes.byref(v) for v in cnt])
+    if rc != 0:
+        raise RuntimeError(f"bench_echo_overload failed: {rc}")
+    keys = ("goodput_qps", "p50_us", "p99_us", "ok", "shed", "timedout",
+            "other")
+    return dict(zip(keys, [v.value for v in dbl + cnt]))
+
+
+def bench_stream(addr: str, total_bytes: int = 1 << 30,
+                 chunk_bytes: int = 1 << 20, service: str = "StreamService",
+                 method: str = "Sink") -> dict:
+    """The core's stream loop: streams total_bytes in chunk_bytes chunks
+    to a stream-sink method (Server.add_stream_sink), waits until the
+    sink consumed everything, and reports goodput (MB/s) and the
+    inter-chunk-completion gap percentiles (us)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    dbl = [ctypes.c_double() for _ in range(3)]
+    chunks = ctypes.c_longlong()
+    err = ctypes.create_string_buffer(256)
+    rc = L.tbus_bench_stream(
+        addr.encode(), service.encode(), method.encode(), total_bytes,
+        chunk_bytes, *[ctypes.byref(v) for v in dbl], ctypes.byref(chunks),
+        err)
+    if rc != 0:
+        raise RpcError(rc, "bench_stream failed: "
+                       + err.value.decode(errors="replace"))
+    return {"goodput_MBps": dbl[0].value, "gap_p50_us": dbl[1].value,
+            "gap_p99_us": dbl[2].value, "chunks": chunks.value}
+
+
+# ---- per-stage timing and tracing ----
+
+def rpcz_enable(on: bool = True) -> None:
+    """Toggles rpcz span tracing (costs an allocation per RPC)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    L.tbus_rpcz_enable(1 if on else 0)
+
+
+def rpcz_dump() -> str:
+    """Text dump of recent spans (newest first)."""
+    return _native_str("tbus_rpcz_dump")
+
+
+def rpcz_dump_json() -> list:
+    """Recent spans as dicts (ids in hex; stage-clock stamps in ns under
+    "stages"; annotations as [offset_us, text] pairs)."""
+    text = _native_str("tbus_rpcz_dump_json")
+    return json.loads(text) if text else []
+
+
+def stage_stats() -> dict:
+    """Per-stage percentile stats of the tpu:// fast path's decomposition:
+    {"tbus_shm_stage_<hop>": {"count": N, "p50_ns": ..., "p99_ns": ...,
+    ...}, ...} (ns). A TCP call leaves it untouched."""
+    text = _native_str("tbus_stage_stats_json")
+    return json.loads(text) if text else {}
+
+
+def timeline_dump() -> str:
+    """The /timeline page body: the per-stage percentile table and the
+    slowest staged spans as waterfalls."""
+    return _native_str("tbus_timeline_dump")
+
+
+def trace_set_collector(addr: str) -> None:
+    """Points this process's span exporter at a TraceSink collector
+    ("host:port"; "" disables): completed rpcz spans batch out over an
+    ordinary channel, head-sampled at tbus_trace_export_permille, slow
+    and failed traces always. Children inherit $TBUS_TRACE_COLLECTOR."""
+    L = _native.lib()
+    L.tbus_init(0)
+    if L.tbus_trace_set_collector(addr.encode()) != 0:
+        raise RuntimeError("trace_set_collector failed")
+
+
+def trace_flush() -> int:
+    """Ships all queued spans to the collector now; returns the spans
+    shipped, -1 when no collector is set."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return L.tbus_trace_flush()
+
+
+def trace_query(trace_id_hex: str) -> list:
+    """Spans of one trace collected by this process's TraceSink, each
+    with its origin "process"; empty when it holds none."""
+    L = _native.lib()
+    L.tbus_init(0)
+    text = _take_str(L.tbus_trace_query_json(trace_id_hex.encode()))
+    return json.loads(text) if text else []
+
+
+def trace_perfetto() -> dict:
+    """The merged mesh timeline (collected and local spans) as Perfetto
+    trace-event JSON, one track per process."""
+    text = _native_str("tbus_trace_perfetto_json")
+    return json.loads(text) if text else {}
+
+
+def trace_stats() -> dict:
+    """Exporter and collector counters: exported, dropped, batches,
+    send_fail, sink_spans, tail_kept, store_evicted, store_traces,
+    store_bytes."""
+    text = _native_str("tbus_trace_stats_json")
+    return json.loads(text) if text else {}
+
+
+# ---- transport counters ----
+
+def shm_lanes() -> int:
+    """The shm descriptor-ring lane count advertised to new tpu://
+    handshakes (the clamped tbus_shm_lanes flag; 0 = one lane)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return int(L.tbus_shm_lanes())
+
+
+def shm_zero_copy_frames() -> int:
+    """Frames the shm fabric shipped as zero-copy descriptors of exported
+    pool blocks."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return int(L.tbus_shm_zero_copy_frames())
+
+
+def shm_payload_copy_bytes() -> int:
+    """Payload-copy tripwire of the shm plane: bytes of chain-grain
+    (>= 16 KiB) exportable fragments that paid an arena copy."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return int(L.tbus_shm_payload_copy_bytes())
+
+
+def fd_loops() -> int:
+    """The fd event-loop count of the TCP path (SO_REUSEPORT acceptor
+    shards and worker-polled epoll loops; $TBUS_DISPATCHERS at first
+    socket use)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return int(L.tbus_fd_loops())
+
+
+def fd_rtc_max_bytes() -> int:
+    """The run-to-completion byte cap for fd input events (0: off)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    return int(L.tbus_fd_rtc_max_bytes())
 
 
 # ---- the torch collective fan-out backend ----
@@ -477,6 +756,14 @@ class Server:
         if rc != 0:
             raise RuntimeError(f"add_echo failed: {rc}")
 
+    def add_sleep(self, service: str, method: str, sleep_us: int) -> None:
+        """Mounts a native slow handler: it sleeps sleep_us on its fiber
+        and answers "ok" (the slow backend of overload drills)."""
+        rc = self._L.tbus_server_add_sleep(
+            self._h, service.encode(), method.encode(), sleep_us)
+        if rc != 0:
+            raise RuntimeError(f"add_sleep failed: {rc}")
+
     def add_method(self, service: str, method: str,
                    fn: Callable[[bytes], bytes]) -> None:
         L = self._L
@@ -498,6 +785,78 @@ class Server:
             self._h, service.encode(), method.encode(), thunk, None)
         if rc != 0:
             raise RuntimeError(f"add_method failed: {rc}")
+
+    def add_stream_sink(self, service: str = "StreamService",
+                        method: str = "Sink", echo: bool = False) -> None:
+        """Mounts a native stream sink: every offered stream is accepted
+        and its chunks consumed (echo=True echoes them back), counted in
+        tbus_stream_sink_bytes/_chunks. The server half of bench_stream."""
+        rc = self._L.tbus_server_add_stream_sink(
+            self._h, service.encode(), method.encode(), 1 if echo else 0)
+        if rc != 0:
+            raise RuntimeError(f"add_stream_sink failed: {rc}")
+
+    def add_stream_method(self, service: str, method: str,
+                          fn: Callable) -> None:
+        """Like add_method, but fn(body, accept) also receives an
+        `accept(max_buf_size=0, echo=False) -> Stream` callable that
+        accepts the request's offered stream (None without one)."""
+        L = self._L
+
+        @_native.HANDLER_FN
+        def thunk(_user, req, req_len, resp_ctx):
+            try:
+                body = ctypes.string_at(req, req_len) if req_len else b""
+
+                def accept(max_buf_size: int = 0, echo: bool = False):
+                    sid = L.tbus_stream_accept(
+                        resp_ctx, max_buf_size, 1 if echo else 0)
+                    return Stream(sid) if sid else None
+
+                out = fn(body, accept)
+                if out:
+                    L.tbus_response_append(resp_ctx, out, len(out))
+            except RpcError as e:
+                L.tbus_response_set_error(resp_ctx, e.code, e.text.encode())
+            except Exception as e:  # handler bug -> internal error
+                L.tbus_response_set_error(resp_ctx, 2001, str(e).encode())
+
+        self._callbacks.append(thunk)
+        rc = L.tbus_server_add_method(
+            self._h, service.encode(), method.encode(), thunk, None)
+        if rc != 0:
+            raise RuntimeError(f"add_stream_method failed: {rc}")
+
+    def enable_ssl(self, cert_pem_path: str, key_pem_path: str) -> None:
+        """TLS on the shared port (sniffed beside plaintext; ALPN
+        negotiates h2/http1.1). Call before start()."""
+        self._L.tbus_server_enable_ssl(
+            self._h, cert_pem_path.encode(), key_pem_path.encode())
+
+    def usercode_in_pthread(self) -> None:
+        """Runs this server's handlers on dedicated pthreads instead of
+        fiber workers (call before start()); needed by Python handlers
+        that block, e.g. on a nested synchronous RPC."""
+        self._L.tbus_server_usercode_in_pthread(self._h)
+
+    def enable_trace_sink(self) -> None:
+        """Mounts the builtin TraceSink span collector (call before
+        start()): peers whose tbus_trace_collector names this server ship
+        their rpcz spans here, stitched by trace id (trace_query)."""
+        if self._L.tbus_server_enable_trace_sink(self._h) != 0:
+            raise RuntimeError("enable_trace_sink failed (already started?)")
+
+    def set_concurrency_limiter(self, service: str, method: str,
+                                spec: str) -> None:
+        """Per-method admission policy: "unlimited", "constant:N", "auto"
+        or "timeout:<budget_ms>"; a malformed spec raises ValueError with
+        the parser's message."""
+        err = ctypes.create_string_buffer(256)
+        rc = self._L.tbus_server_set_limiter_ex(
+            self._h, service.encode(), method.encode(), spec.encode(), err)
+        if rc != 0:
+            raise ValueError("set_concurrency_limiter failed: "
+                             f"{err.value.decode(errors='replace')}")
 
     def add_device_method(self, service: str, method: str,
                           transform: str = "echo") -> None:
@@ -572,6 +931,14 @@ class Server:
             self._L.tbus_server_stop(self._h)
             self._running = False
 
+    def drain(self, deadline_ms: int = 10000) -> int:
+        """Graceful drain: new work bounces with the retryable ELOGOFF and
+        /health answers "draining", while what is in flight completes
+        under deadline_ms; stragglers are then force-closed. The server
+        runs on until stop(). Returns the force-closed streams (0: a
+        clean drain)."""
+        return self._L.tbus_server_drain(self._h, int(deadline_ms))
+
     def __enter__(self) -> "Server":
         return self
 
@@ -617,6 +984,25 @@ class Channel:
                 if resp_len.value else b""
         finally:
             self._L.tbus_buf_free(ctypes.cast(resp, ctypes.c_char_p))
+
+    def call_progressive(self, service: str, method: str, request: bytes,
+                         timeout_ms: int = 30000) -> list:
+        """One RPC whose response body is taken as it arrives: on h2 a
+        piece per DATA frame, elsewhere the buffered body as one piece.
+        Returns the pieces (bytes)."""
+        pieces = []
+
+        @_native.PIECE_FN
+        def on_piece(_user, data, n):
+            pieces.append(ctypes.string_at(data, n) if n else b"")
+
+        err = ctypes.create_string_buffer(256)
+        rc = self._L.tbus_call_progressive(
+            self._h, service.encode(), method.encode(), request,
+            len(request), timeout_ms, on_piece, None, err)
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        return pieces
 
     def __del__(self) -> None:
         try:

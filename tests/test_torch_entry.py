@@ -55,7 +55,9 @@ def test_cuda_without_a_card_raises():
     with pytest.raises(RuntimeError):
         tentry.dryrun_multichip(8, device="cuda")
     with pytest.raises(RuntimeError):
-        distributed.init(0, 1, "unused", "nccl")
+        distributed.init_store(0, 1, "unused", "nccl")
+    with pytest.raises(RuntimeError):
+        distributed.init("unused:0", 1, 0)
 
 
 def test_unknown_device_raises():
