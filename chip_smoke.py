@@ -38,6 +38,13 @@ per-stage decomposition (stage_stats) and one call's rpcz span; then
 tbus_torch.parallel.distributed.init by coordinator and global_mesh,
 driving path 2's step (K1, K2) at hidden 4096.
 
+Path 6, the core's ops planes around path 3's device methods (K4, K5):
+the wait profiler and flight recorder, the port runtime's /status line,
+an SLO on a device method with its recorder trigger, the channel
+options (http, h2, grpc through GrpcStub, gzip, zlib, pooled, short,
+lb=rr over list://), the cache tier with replay and the reshard drill
+(the host's legs), the metrics sink and the autotune controller.
+
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
@@ -106,7 +113,9 @@ server is up, with the runtime's launch counts reset before and read
 after: bench_echo for 1 s a leg at 4 KiB and 1 MiB against the native
 echo, Echo and Xor (K4) and Dot (K5, 1 MiB only), in this process over
 TCP at concurrency 1 (beside phase xii's Python-loop p50) and from a
-child process over TCP and tpu:// at concurrency 1 and 8 (qps, p50, p99,
+generator child process (`chip_smoke.py --gen-child`, which runs the
+tbus_torch.rpc calls its parent writes to its stdin, and serves path 6
+too) over TCP and tpu:// at concurrency 1 and 8 (qps, p50, p99,
 p999; dot128's GFLOP/s), each tpu:// leg with both processes'
 stage_stats hops, K4's and K5's launches at least the calls each leg
 completed, one traced call's client and server rpcz spans, and the
@@ -114,7 +123,30 @@ wires and surfaces that fail on the card's core; (xix) path 5b:
 init("127.0.0.1:<port>", 1, 0), global_mesh(("dp", "tp")) and the
 fan-out step at hidden 4096 x rows 4096, equal bit for bit to the step
 on default_mesh(1), with its wall p50 and the K1 and K2 counts reset
-before and read after. Any failure exits nonzero; the last line is the
+before and read after; (xx) path 6, run after (xviii) while path 3's
+server is up, with the runtime's launch counts reset before and read
+after, its calls made from path 5a's generator child: (a)
+wait_profile_* in the server process over 1 s tpu:// legs at c=1
+(native echo and Echo at 4 KiB, Dot at 1 MiB) with each leg's five
+hottest wait sites, its classes and the sites through the port's
+runtime beside path 5a's handler hop; the
+flight ring's DevService.Echo records; a recorder_capture bundle with
+every section; (b) /status's device line of path 3's server (platform
+gpu, 1 device, executions risen by the calls of (a)); (c) a loose and a
+tight p99 objective on DevService.Xor at 4 KiB, the tight one's
+slo:<name>:burn=1 rule armed in the calling process: its fast burn
+over 1, the loose one's under, the rule fired and a bundle with an slo
+section, one exemplar's budget waterfall; (d) Xor at 4 KiB and 1 MiB
+through the core's defaults and each channel option, 100 calls a size,
+every reply byte-equal to K4's plain version, p50/p99, both servers of
+lb=rr taking calls;
+(e) bench_cache over TCP and tpu:// (256 KiB values, 96 keys, GETs,
+c=8, 1 s), replay(verify=True) of a seeded 1000-record corpus and
+cache_reshard_drill(); (f) two metrics_flush() into a sink of this
+process: one node, DevService.Xor's rollup counting at least (c)'s
+calls, slo_fleet naming (c)'s objectives; (g) autotune over a 2 s
+tpu:// Xor leg at c=8, every tunable flag put back, 100 Xor calls
+byte-exact after. Any failure exits nonzero; the last line is the
 device JSON only on success.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -124,6 +156,7 @@ import ctypes
 import json
 import math
 import os
+import select
 import struct
 import subprocess
 import sys
@@ -1971,26 +2004,6 @@ def _hops(stats, before=None):
     return out
 
 
-def _ctl_handler(body):
-    """The device server process's side of the generator child's legs:
-    its stage_stats and launch counts, and rpcz switched on for a traced
-    leg and off again, with the server spans of the traces the child
-    names."""
-    from tbus_torch import rpc
-
-    if body == b"rpcz:1":
-        rpc.rpcz_enable(True)
-        return b"{}"
-    if body.startswith(b"rpcz:0:"):  # off, and the spans of these traces
-        ids = set(body[len(b"rpcz:0:"):].decode().split(","))
-        spans = [sp for sp in rpc.rpcz_dump_json()
-                 if sp["side"] == "server" and sp["trace_id"] in ids]
-        rpc.rpcz_enable(False)
-        return json.dumps({"spans": spans}).encode()
-    return json.dumps({"stages": rpc.stage_stats(),
-                       "launches": rpc.device_stats()["launches"]}).encode()
-
-
 # A traced call's hops, in order: (name, from, to), each stamp a
 # ("client" | "server", stage) of the call's two rpcz spans ("start" and
 # "end" are the client span's own ends). Their sum is the call's latency.
@@ -2035,19 +2048,12 @@ def _span_hops(pairs):
     return out
 
 
-def gen_child(port, ctl_port):
-    """Entry of path 5a's generator process: bench_echo legs against the
-    device server over loopback TCP and over tpu:// (the shm fabric
-    between two processes, whose hops stage_stats decomposes), traced
-    tpu:// legs whose rpcz spans decompose each call, and the core's
-    wires probed; the last line is its JSON."""
-    from tbus_torch import _native, rpc
-
-    rpc.init()
-    ctl = rpc.Channel(f"127.0.0.1:{ctl_port}", timeout_ms=30000)
-
-    def server(cmd=b"stats"):
-        return json.loads(ctl.call("Ctl", "Stats", cmd))
+def _child_legs(child, port):
+    """Path 5a's legs from the generator child, over loopback TCP and
+    over tpu:// (the shm fabric between two processes, whose hops
+    stage_stats decomposes: the client's read in the child, the server's
+    in this process)."""
+    from tbus_torch import rpc
 
     legs = []
     for transport in ("tcp", "tpu"):
@@ -2055,55 +2061,80 @@ def gen_child(port, ctl_port):
                 else f"127.0.0.1:{port}")
         for method, key in GEN_CELLS:
             for conc in GEN_CONC:
-                s0, c0 = server(), rpc.stage_stats()
-                r = _gen_leg(rpc, addr, method, key, conc)
-                s1, c1 = server(), rpc.stage_stats()
+                s0, l0 = rpc.stage_stats(), rpc.device_stats()["launches"]
+                c0 = child.call("stage_stats")
+                r = child.call("bench_echo", addr=addr, payload=SIZES[key],
+                               concurrency=conc, duration_ms=GEN_MS,
+                               service="DevService", method=method)
+                c1 = child.call("stage_stats")
+                s1, l1 = rpc.stage_stats(), rpc.device_stats()["launches"]
                 leg = dict(r, transport=transport, proc="child",
                            method=method, size=key, conc=conc,
-                           launches={k: s1["launches"][k] - s0["launches"][k]
+                           launches={k: l1[k] - l0[k]
                                      for k in ("u8_transform", "dot128")})
                 if transport == "tpu":
                     leg["client_hops"] = _hops(c1, c0)
-                    leg["server_hops"] = _hops(s1["stages"], s0["stages"])
+                    leg["server_hops"] = _hops(s1, s0)
                 legs.append(leg)
-    # Traced legs: rpcz on in both processes, each tpu:// cell at c=1
-    # paced to 150 calls/s (each call finds the threads parked, unlike a
-    # back-to-back leg) (under rpcz's sampling budget of 1000 spans/s,
-    # and within the 64 newest spans the core returns), so every call is
-    # traced on both sides; a call's client and server spans share its
-    # trace id, and their stamps share the host's clock.
-    tpu = f"tpu://127.0.0.1:{port}"
+    return legs
+
+
+def _traced_legs(child, port):
+    """Traced tpu:// legs from the generator child: rpcz on in both
+    processes, each cell at c=1 paced to 150 calls/s (each call finds the
+    threads parked, unlike a back-to-back leg) (under rpcz's sampling
+    budget of 1000 spans/s, and within the 64 newest spans the core
+    returns), so every call is traced on both sides; a call's client and
+    server spans share its trace id, and their stamps share the host's
+    clock."""
+    from tbus_torch import rpc
+
     traced, seen = [], set()
     for method, key in GEN_CELLS:
+        leg = dict(addr=f"tpu://127.0.0.1:{port}", payload=SIZES[key],
+                   concurrency=1, duration_ms=300, qps=150.0,
+                   service="DevService", method=method)
         # The same paced leg untraced first: what rpcz adds to a call.
-        paced = rpc.bench_echo(tpu, SIZES[key], 1, 300, qps=150.0,
-                               service="DevService", method=method)
-        server(b"rpcz:1")
+        paced = child.call("bench_echo", **leg)
         rpc.rpcz_enable(True)
-        rpc.bench_echo(tpu, SIZES[key], 1, 300, qps=150.0,
-                       service="DevService", method=method)
-        rpc.rpcz_enable(False)
-        client = [sp for sp in rpc.rpcz_dump_json()
-                  if sp["side"] == "client" and sp["method"] == method
-                  and sp["trace_id"] not in seen]
-        seen.update(sp["trace_id"] for sp in client)
-        ids = ",".join(sp["trace_id"] for sp in client).encode()
-        servers = {sp["trace_id"]: sp
-                   for sp in server(b"rpcz:0:" + ids)["spans"]}
+        try:
+            child.call("rpcz_enable", on=True)
+            child.call("bench_echo", **leg)
+            child.call("rpcz_enable", on=False)
+            client = [sp for sp in child.call("rpcz_dump_json")
+                      if sp["side"] == "client" and sp["method"] == method
+                      and sp["trace_id"] not in seen]
+            seen.update(sp["trace_id"] for sp in client)
+            ids = {sp["trace_id"] for sp in client}
+            servers = {sp["trace_id"]: sp for sp in rpc.rpcz_dump_json()
+                       if sp["side"] == "server" and sp["trace_id"] in ids}
+        finally:
+            rpc.rpcz_enable(False)
         pairs = [(c, servers[c["trace_id"]]) for c in client
                  if c["trace_id"] in servers]
         traced.append({"method": method, "size": key,
                        "untraced_p50_us": paced["p50_us"],
                        "hops": _span_hops(pairs),
                        "example": list(pairs[0]) if pairs else None})
-    # What of this slice does not work on this core, said by trying it.
+    return traced
+
+
+def _failing_surfaces(child, port):
+    """What of the core's surfaces does not work on it, said by trying: the
+    wires from the generator child, the rest in this process (one core)."""
+    from tbus_torch import rpc
+
     failing = []
     for wire in GEN_WIRES:
         try:
-            rpc.bench_echo(f"127.0.0.1:{port}", 4096, 1, 100, protocol=wire,
-                           service="DevService", method="Plain")
-        except RuntimeError as e:
-            failing.append(f"bench_echo(protocol={wire!r}): {e}")
+            child.call("bench_echo", addr=f"127.0.0.1:{port}", payload=4096,
+                       concurrency=1, duration_ms=100, protocol=wire,
+                       service="DevService", method="Plain")
+        except _ChildError as e:
+            if not e.error.startswith("RuntimeError: "):
+                raise
+            failing.append(f"bench_echo(protocol={wire!r}): "
+                           f"{e.error[len('RuntimeError: '):]}")
     try:
         rpc.trace_perfetto()
     except (RuntimeError, ValueError) as e:
@@ -2113,9 +2144,7 @@ def gen_child(port, ctl_port):
     except OSError:
         failing.append("enable_ssl: libssl.so.3 is not loadable (TLS "
                        "off in the core)")
-    say(json.dumps({"legs": legs, "traced": traced, "failing": failing,
-                    "core": _native.core_flavor()}))
-    return 0
+    return failing
 
 
 def _say_leg(dev, leg, py_lat):
@@ -2152,40 +2181,26 @@ def _check_leg_launches(leg):
     return completed
 
 
-def phase_generator(dev, port, py_lat):
+def phase_generator(dev, port, py_lat, child):
     phase("main path 5a: the core's C++ load generator against path 3's "
           "server (loopback TCP and tpu://)")
-    import tbus_torch as tt
     from tbus_torch import rpc
 
-    ctl = tt.Server()
-    ctl.add_method("Ctl", "Stats", _ctl_handler)
-    ctl_port = ctl.start(0)
     # The main path's run: every count starts at 0 here.
     rpc.reset_device_launches()
-    try:
-        legs = []
-        for method, key in GEN_CELLS:  # in this process, as phase xii
-            before = rpc.device_stats()["launches"]
-            r = _gen_leg(rpc, f"127.0.0.1:{port}", method, key, 1)
-            after = rpc.device_stats()["launches"]
-            legs.append(dict(r, transport="tcp", proc="in-process",
-                             method=method, size=key, conc=1,
-                             launches={k: after[k] - before[k]
-                                       for k in ("u8_transform", "dot128")}))
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--gen-child",
-             str(port), str(ctl_port)], capture_output=True, text=True,
-            timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(f"the generator child failed:\n"
-                                 f"{proc.stdout[-3000:]}\n"
-                                 f"{proc.stderr[-3000:]}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-        launches = rpc.device_stats()["launches"]
-    finally:
-        ctl.stop()
-    legs += child["legs"]
+    legs = []
+    for method, key in GEN_CELLS:  # in this process, as phase xii
+        before = rpc.device_stats()["launches"]
+        r = _gen_leg(rpc, f"127.0.0.1:{port}", method, key, 1)
+        after = rpc.device_stats()["launches"]
+        legs.append(dict(r, transport="tcp", proc="in-process",
+                         method=method, size=key, conc=1,
+                         launches={k: after[k] - before[k]
+                                   for k in ("u8_transform", "dot128")}))
+    legs += _child_legs(child, port)
+    traced = _traced_legs(child, port)
+    failing = _failing_surfaces(child, port)
+    launches = rpc.device_stats()["launches"]
     completed = {"u8_transform": 0, "dot128": 0}
     for leg in legs:
         _say_leg(dev, leg, py_lat)
@@ -2197,7 +2212,7 @@ def phase_generator(dev, port, py_lat):
             raise AssertionError(f"5a tpu:// leg without stage hops: {leg}")
     say(f"launches on path 5a: {json.dumps(launches)} (completed device "
         f"calls >= {json.dumps(completed)})")
-    for cell in child["traced"]:
+    for cell in traced:
         hops = cell["hops"]
         if hops["calls"] < 1:
             raise AssertionError(f"5a: no traced call of {cell['method']} "
@@ -2212,12 +2227,467 @@ def phase_generator(dev, port, py_lat):
             + f"; call p50 {hops['total']['p50_us']:.0f} us traced, "
             f"{cell['untraced_p50_us']:.0f} us untraced at the same pace "
             f"[{dev['smi']}]")
-    client, server = child["traced"][2]["example"]  # Echo 4KiB
+    client, server = traced[2]["example"]  # Echo 4KiB
     for side, span in (("client", client), ("server", server)):
         say(f"rpcz {side} span, DevService.Echo 4KiB over tpu://: "
             f"{json.dumps(span)}")
-    say(f"core flavour of the generator: {child['core']}; failing there: "
-        f"{json.dumps(child['failing'])}")
+    say(f"failing on this core: {json.dumps(failing)}")
+    return launches, legs, traced
+
+
+# ---- path 6: the core's ops planes around the device methods ----
+
+OPS_MS = 1000  # one leg of 6a and 6c
+OPS_LEGS = [("Plain", "4KiB"), ("Echo", "4KiB"), ("Dot", "1MiB")]  # 6a
+OPS_CALLS = 100  # a 6d variant's calls at each size, and 6g's check
+# 6d's variants: (name, Channel keyword arguments), the core's defaults
+# first; "grpc" goes through GrpcStub, "lb=rr" over a list:// of two
+# servers.
+OPS_VARIANTS = [("default", {}), ("http", {"protocol": "http"}),
+                ("h2", {"protocol": "h2"}), ("grpc", {"protocol": "grpc"}),
+                ("gzip", {"compress": 1}), ("zlib", {"compress": 2}),
+                ("pooled", {"connection": "pooled"}),
+                ("short", {"connection": "short"}), ("lb=rr", {"lb": "rr"})]
+
+
+def gen_child():
+    """Entry of the generator process of paths 5a and 6: runs the
+    tbus_torch.rpc calls its parent writes to stdin, one JSON line each
+    ({"fn", "kwargs"}), and answers each with one JSON line ({"result"}
+    or {"error"})."""
+    from tbus_torch import rpc
+
+    rpc.init()
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        try:
+            out = {"result": getattr(rpc, cmd["fn"])(**cmd["kwargs"])}
+        except Exception as e:  # the parent fails the run with it
+            out = {"error": f"{type(e).__name__}: {e}"}
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+class _ChildError(AssertionError):
+    """A call the generator child raised on; `error` is its
+    "<type>: <message>"."""
+
+    def __init__(self, fn, kwargs, error):
+        super().__init__(f"generator child: {fn}({kwargs}): {error}")
+        self.error = error
+
+
+class _GenChild:
+    """The generator process of paths 5a and 6 (gen_child), a second
+    process on path 3's server: call(fn, **kwargs) runs
+    tbus_torch.rpc.fn there, each call under a deadline."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--gen-child"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def call(self, fn, **kwargs):
+        self.proc.stdin.write(json.dumps({"fn": fn, "kwargs": kwargs}) + "\n")
+        self.proc.stdin.flush()
+        if not select.select([self.proc.stdout], [], [], 120)[0]:
+            raise AssertionError(f"generator child: {fn} took over 120 s")
+        out = json.loads(self.proc.stdout.readline() or '{"error": "ended"}')
+        if "error" in out:
+            raise _ChildError(fn, kwargs, out["error"])
+        return out["result"]
+
+    def close(self):
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _status_lines(port):
+    """A server's /status page: its method lines and its device line."""
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}/status",
+                                  timeout=30).read().decode().splitlines()
+
+
+def _device_line(port):
+    """The runtime's /status line as {key: value}."""
+    line = [x for x in _status_lines(port)
+            if x.startswith(("cuda_runtime:", "pjrt:"))]
+    if len(line) != 1 or not line[0].startswith("cuda_runtime: "):
+        raise AssertionError(f"/status has no device line of the port's "
+                             f"runtime: {line}")
+    return dict(tok.split("=") for tok in line[0].split()[1:])
+
+
+def _served(port, method):
+    """Calls a server of this process has served of `method`."""
+    line = [x for x in _status_lines(port)
+            if x.strip().startswith(method + " ")]
+    return int(line[0].split("count=")[1].split()[0]) if line else 0
+
+
+def _wait_sites(dump, n=5):
+    """The n hottest sites of a wait_profile_dump(): (total_us, samples,
+    max_us, class, frames)."""
+    sites = []
+    body = dump.split("-- wait sites (by total wait) --\n", 1)[-1]
+    for line in body.splitlines():
+        parts = line.split("\t")
+        if len(parts) < 5 or not parts[0].endswith("us"):
+            continue
+        sites.append((int(parts[0][:-2]), int(parts[1]),
+                      int(parts[2][4:-2]), parts[3], parts[4]))
+    return sites[:n]
+
+
+def _site_name(frames):
+    """A site's callers: the first three frames with a symbol past the
+    butex wait itself."""
+    names = [f for f in frames.split("<")
+             if f and not f.startswith("0x") and "butex_wait" not in f]
+    return " < ".join(n[:48] for n in names[:3]) or frames[:60]
+
+
+def _xor_truth(payload):
+    """K4's plain xor255 on the card (the replies 6d and 6g hold to)."""
+    from tbus_torch.kernels import device_programs as dp
+
+    return dp.device_method_reference("xor255", payload, device="cuda")
+
+
+def _ops_wait_sites(dev, child, port, traced):
+    """6a: where a device call waits, leg by leg."""
+    from tbus_torch import rpc
+
+    tpu = f"tpu://127.0.0.1:{port}"
+    hop = {(c["method"], c["size"]): c["hops"] for c in traced}
+    execs0 = int(_device_line(port)["executions"])
+    completed = {"u8_transform": 0, "dot128": 0}
+    rpc.wait_profiler_enable(True)
+    try:
+        for method, key in OPS_LEGS:
+            rpc.wait_profile_reset()
+            r = child.call("bench_echo", addr=tpu, payload=SIZES[key],
+                           concurrency=1, duration_ms=OPS_MS,
+                           service="DevService", method=method)
+            calls = int(r["qps"] * OPS_MS / 1000)
+            if method in GEN_KERNEL:
+                completed[GEN_KERNEL[method]] += calls
+            stats, dump = rpc.wait_profile_stats(), rpc.wait_profile_dump()
+            sites = _wait_sites(dump)
+            say(f"6a tpu:// {method} "
+                f"({DEVICE_METHODS.get(method, 'native echo')}) {key} c=1: "
+                f"qps {r['qps']:.0f}, p50 {r['p50_us']:.0f} us, p99 "
+                f"{r['p99_us']:.0f} us; {stats['samples']} wait samples in "
+                f"the server process ({dump.splitlines()[0]}), "
+                f"{stats['sites']} sites, classes (us) "
+                f"{json.dumps(stats['classes'])} [{dev['smi']}]")
+            for total, samples, mx, cls, frames in sites:
+                say(f"    {cls:8s} total {total} us, {samples} samples, max "
+                    f"{mx} us, {total / max(calls, 1):.1f} us a completed "
+                    f"call; {_site_name(frames)[:90]}")
+            if method == "Echo":  # read before Dot's calls fill the ring
+                ring = [x for x in rpc.flight_ring(256)
+                        if x["method"] == "DevService.Echo"]
+            if method == "Plain":
+                continue
+            # Parks whose stack runs through the port's runtime
+            # (tbus::cuda): a handler fiber waiting on its device job.
+            runtime = [x for x in _wait_sites(dump, 40)
+                       if "_ZN4tbus4cuda" in x[4]]
+            handler = hop[(method, key)].get("dispatch_to_done", {})
+            say(f"6a {method} {key}: sampled parks through the port's "
+                f"runtime (tbus::cuda frames): {len(runtime)} sites, "
+                + (", ".join(f"{t / n:.1f} us a sampled park (estimate, "
+                             f"{n} samples of {calls} calls) at "
+                             f"{_site_name(f)}"
+                             for t, n, _, _, f in runtime) or "none")
+                + f"; beside it the handler hop dispatch -> done p50 "
+                f"{handler.get('p50_us', float('nan')):.1f} us (path 5a's "
+                f"traced spans, this run) [{dev['smi']}]")
+    finally:
+        rpc.wait_profiler_enable(False)
+    if not ring or not all("lat_us" in r for r in ring):
+        raise AssertionError("6a: the flight ring holds no DevService.Echo "
+                             "record with lat_us")
+    say(f"6a flight ring: {len(ring)} DevService.Echo records of the newest "
+        f"256, e.g. {json.dumps(ring[0])}")
+    boost = rpc.flag_get("tbus_recorder_boost_ms")
+    rpc.flag_set("tbus_recorder_boost_ms", 0)
+    try:
+        bid = rpc.recorder_capture("path 6", profile_seconds=0)
+    finally:
+        rpc.flag_set("tbus_recorder_boost_ms", boost)
+    bundle = [b for b in rpc.recorder_bundles()["bundles"] if b["id"] == bid]
+    sections = set(bundle[0]["sections"]) if bundle else set()
+    text = rpc.recorder_bundle_text(bid)
+    if sections != {"ring", "cpu", "wait", "vars", "sched", "slo"} or (
+            "tbus_pjrt_h2d_copy_bytes" not in text):
+        raise AssertionError(f"6a bundle {bid}: sections {sections}, DMA "
+                             f"counters in vars: "
+                             f"{'tbus_pjrt_h2d_copy_bytes' in text}")
+    say(f"6a recorder_capture('path 6') bundle {bid}: sections "
+        f"{json.dumps(bundle[0]['sections'])}, its vars carry the DMA "
+        f"counters")
+    # 6b: the device line of path 3's server.
+    line = _device_line(port)
+    rose, calls = int(line["executions"]) - execs0, sum(completed.values())
+    if line["platform"] != "gpu" or line["devices"] != "1" or rose < calls:
+        raise AssertionError(f"6b /status device line {line}: executions "
+                             f"rose {rose} for >= {calls} device calls")
+    say(f"6b /status of path 3's server: cuda_runtime: "
+        f"{' '.join(f'{k}={v}' for k, v in line.items())} (executions "
+        f"+{rose} across 6a, >= {calls} completed device calls)")
+    return completed
+
+
+def _ops_slo(dev, child, port, legs):
+    """6c: two objectives on DevService.Xor (K4, 4 KiB), the tight one
+    burning and firing the recorder in the calling process."""
+    from tbus_torch import rpc
+
+    tpu = f"tpu://127.0.0.1:{port}"
+    leg = [g for g in legs if g["transport"] == "tpu" and g["conc"] == 1
+           and g["method"] == "Xor" and g["size"] == "4KiB"][0]
+    loose_us, tight_us = int(10 * leg["p99_us"]), max(1, int(leg["p50_us"]))
+    # Objectives are kept per name: the loose one on every call of the
+    # method, the tight one on its calls to this server (Name@peer, the
+    # peer as the caller names it).
+    loose, tight = "DevService.Xor", f"DevService.Xor@{tpu}"
+    spec = f"{loose}:p99_us={loose_us};{tight}:p99_us={tight_us}"
+    # No CPU profile in a triggered bundle (it would block 1 s a bundle).
+    profile_s = child.call("flag_get", name="tbus_recorder_profile_s")
+    child.call("flag_set", name="tbus_slo_spec", value=spec)
+    child.call("flag_set", name="tbus_recorder_profile_s", value=0)
+    rpc.flag_set("tbus_slo_spec", spec)  # for 6f's sink-side rollup
+    fired0 = child.call("recorder_stats")["fired"]
+    try:
+        child.call("recorder_arm", triggers=f"slo:{tight}:burn=1")
+        r = child.call("bench_echo", addr=tpu, payload=SIZES["4KiB"],
+                       concurrency=1, duration_ms=OPS_MS,
+                       service="DevService", method="Xor")
+        burns = {name: child.call("slo_burn", name=name)
+                 for name in (loose, tight)}
+        deadline = time.monotonic() + 5
+        while True:  # the trigger engine polls every 500 ms
+            fired = child.call("recorder_stats")["fired"]
+            bundles = [b for b in child.call("recorder_bundles")["bundles"]
+                       if b["reason"].startswith(f"slo:{tight}")]
+            if (fired > fired0 and bundles) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        status = child.call("slo_status")
+    finally:
+        child.call("recorder_disarm")
+        child.call("flag_set", name="tbus_slo_spec", value="")
+        child.call("flag_set", name="tbus_recorder_profile_s",
+                   value=profile_s)
+    if not (burns[loose] < 1 < burns[tight]) or fired <= fired0 or not (
+            bundles and "slo" in bundles[-1]["sections"]):
+        raise AssertionError(f"6c: burns {burns}, fired {fired0} -> "
+                             f"{fired}, bundles {bundles}")
+    exemplars = [e for s in status["slos"] if s["name"] == tight
+                 for e in s["exemplars"] if e["waterfall"]]
+    if not exemplars:
+        raise AssertionError(f"6c: no exemplar with a waterfall: {status}")
+    say(f"6c tpu:// Xor (xor255) 4KiB c=1 for {OPS_MS} ms: qps "
+        f"{r['qps']:.0f}, p50 {r['p50_us']:.0f} us, p99 {r['p99_us']:.0f} us;"
+        f" loose p99 <= {loose_us} us (10 x path 5a's p99) fast burn "
+        f"{burns[loose]}, tight p99 <= {tight_us} us (path 5a's p50) fast "
+        f"burn {burns[tight]}; the rule fired ({fired0} -> {fired}), bundle "
+        f"{bundles[-1]['id']} ({bundles[-1]['reason']}) sections "
+        f"{json.dumps(bundles[-1]['sections'])} [{dev['smi']}]")
+    say(f"6c exemplar waterfall of a device call: "
+        f"{exemplars[0]['waterfall']} ({exemplars[0]['kind']}, "
+        f"{exemplars[0]['latency_us']} us)")
+    return int(r["qps"] * OPS_MS / 1000), (loose, tight)
+
+
+def _ops_channels(dev, port):
+    """6d: Xor (K4) through the channel options, each reply held to K4's
+    plain version on the card."""
+    import tbus_torch as tt
+
+    rng = np.random.default_rng(SEED + 61)
+    payloads = {k: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                for k, n in SIZES.items()}
+    truth = {k: _xor_truth(p) for k, p in payloads.items()}
+    second = tt.Server()
+    second.add_device_method("DevService", "Xor", "xor255")
+    other = second.start(0)
+    calls = 0
+    try:
+        for name, kwargs in OPS_VARIANTS:
+            if name == "grpc":
+                xor = tt.GrpcStub(f"127.0.0.1:{port}", 60000).unary_unary(
+                    "/DevService/Xor")
+            else:
+                addr = (f"list://127.0.0.1:{port},127.0.0.1:{other}"
+                        if name == "lb=rr" else f"127.0.0.1:{port}")
+                ch = tt.Channel(addr, 60000, **kwargs)
+                xor = (lambda c: lambda body: c.call("DevService", "Xor",
+                                                     body))(ch)
+            served0 = [_served(p, "DevService.Xor") for p in (port, other)]
+            lat = {}
+            for key, body in payloads.items():
+                samples = []
+                for _ in range(OPS_CALLS):
+                    t0 = time.perf_counter()
+                    got = xor(body)
+                    samples.append(time.perf_counter() - t0)
+                    if got != truth[key]:
+                        raise AssertionError(f"6d {name} {key}: the reply "
+                                             f"differs from K4's plain "
+                                             f"version")
+                calls += OPS_CALLS
+                lat[key] = (_pctl(samples, 50), _pctl(samples, 99))
+            served = [_served(p, "DevService.Xor") - s0
+                      for p, s0 in zip((port, other), served0)]
+            if name == "lb=rr" and min(served) <= 0:
+                raise AssertionError(f"6d lb=rr: calls per server {served}")
+            say(f"6d Xor via {name}: p50/p99 us 4KiB "
+                f"{lat['4KiB'][0]:.0f}/{lat['4KiB'][1]:.0f}, 1MiB "
+                f"{lat['1MiB'][0]:.0f}/{lat['1MiB'][1]:.0f} (host clock, "
+                f"Python loop, n={OPS_CALLS}), calls per server {served}, "
+                f"every reply byte-equal to K4's plain version "
+                f"[{dev['smi']}]")
+    finally:
+        second.stop()
+    return calls
+
+
+def _ops_cache(dev, child):
+    """6e: the cache tier on the card's core (the host's CPU; no device
+    work)."""
+    import tbus_torch as tt
+
+    s = tt.Server()
+    s.add_cache()
+    cport = s.start(0)
+    try:
+        for transport in ("tcp", "tpu"):
+            addr = (f"tpu://127.0.0.1:{cport}" if transport == "tpu"
+                    else f"127.0.0.1:{cport}")
+            r = child.call("bench_cache", addr=addr, duration_ms=OPS_MS)
+            say(f"6e bench_cache over {transport} from the child (host CPU, "
+                f"not the card; 256 KiB values, 96 keys, GETs, c=8, "
+                f"{OPS_MS} ms): qps {r['qps']:.0f}, GET "
+                f"{r['get_mbps']:.1f} MB/s, hit rate {r['hit_rate']}, p50 "
+                f"{r['p50_us']:.0f} us, p99 {r['p99_us']:.0f} us "
+                f"[{dev['smi']}]")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            corpus = os.path.join(tmp, "cache.rec")
+            tt.cache_corpus_write(corpus, seed=11, n=1000, key_space=64,
+                                  value_bytes=4096, set_permille=100)
+            rep = tt.replay(corpus, f"127.0.0.1:{cport}", verify=True)
+        if rep["round_trip_ok"] != 1 or rep["failed"] != 0:
+            raise AssertionError(f"6e replay: {rep}")
+        drill = tt.cache_reshard_drill()
+        if drill["ok"] != 1:
+            raise AssertionError(f"6e cache_reshard_drill: {drill}")
+    finally:
+        s.stop()
+    say(f"6e replay(verify=True) of 1000 records (seed 11): "
+        f"{json.dumps(rep)} (host CPU)")
+    say(f"6e cache_reshard_drill(): ok {drill['ok']} (host CPU)")
+
+
+AUTOTUNE_KEYS = ("steps", "keeps", "reverts", "rollbacks")  # 6g prints
+
+
+def _ops_autotune(dev, child, port):
+    """6g: the autotune controller's lifecycle over a tpu:// Xor leg,
+    every flag put back."""
+    from tbus_torch import rpc
+
+    before = {d["name"]: d["value"] for d in rpc.flag_domains()}
+    rpc.autotune_enable()
+    try:
+        r = child.call("bench_echo", addr=f"tpu://127.0.0.1:{port}",
+                       payload=SIZES["4KiB"], concurrency=8,
+                       duration_ms=2 * OPS_MS, service="DevService",
+                       method="Xor")
+        st = rpc.autotune_stats()
+    finally:
+        rpc.autotune_disable()
+        for name, value in before.items():
+            rpc.flag_set(name, value)
+    after = {name: rpc.flag_get(name) for name in before}
+    if after != before:
+        raise AssertionError(f"6g: flags not restored: {before} -> {after}")
+    import tbus_torch as tt
+
+    ch = tt.Channel(f"127.0.0.1:{port}", 60000)
+    body = np.random.default_rng(SEED + 67).integers(
+        0, 256, SIZES["4KiB"], dtype=np.uint8).tobytes()
+    truth = _xor_truth(body)
+    for _ in range(OPS_CALLS):
+        if ch.call("DevService", "Xor", body) != truth:
+            raise AssertionError("6g: Xor after autotune differs from K4's "
+                                 "plain version")
+    say(f"6g autotune over tpu:// Xor 4KiB c=8 for {2 * OPS_MS} ms: qps "
+        f"{r['qps']:.0f}, p50 {r['p50_us']:.0f} us; stats "
+        f"{json.dumps({k: st[k] for k in AUTOTUNE_KEYS})}"
+        f"; {len(before)} flags put back, {OPS_CALLS} Xor calls byte-exact "
+        f"after [{dev['smi']}]")
+    return int(r["qps"] * 2 * OPS_MS / 1000) + OPS_CALLS
+
+
+def phase_ops_planes(dev, port, legs, traced, child):
+    phase("main path 6: the core's ops planes around path 3's device "
+          "methods (wait profiler, recorder, SLO, channel options, cache "
+          "tier, metrics sink, autotune)")
+    import tbus_torch as tt
+    from tbus_torch import rpc
+
+    sink = tt.Server()
+    sink.enable_metrics_sink()
+    sink_port = sink.start(0)
+    rpc.metrics_sink_reset()
+    rpc.metrics_set_collector(f"127.0.0.1:{sink_port}")
+    # The main path's run: every count starts at 0 here.
+    rpc.reset_device_launches()
+    try:
+        completed = _ops_wait_sites(dev, child, port, traced)
+        xor_calls, names = _ops_slo(dev, child, port, legs)
+        completed["u8_transform"] += xor_calls + _ops_channels(dev, port)
+        _ops_cache(dev, child)
+        rpc.metrics_flush()
+        rpc.metrics_flush()
+        fleet = rpc.fleet_query()
+        slo_fleet = rpc.slo_fleet()
+        completed["u8_transform"] += _ops_autotune(dev, child, port)
+        launches = rpc.device_stats()["launches"]
+    finally:
+        rpc.metrics_set_collector("")
+        rpc.flag_set("tbus_slo_spec", "")
+        sink.stop()
+    # 6f: this process's node, its device method's rollup, the objectives.
+    lat = fleet["rollups"]["latency"].get("rpc_server_DevService.Xor", {})
+    if (len(fleet["nodes"]) != 1 or lat.get("count", 0) < xor_calls
+            or not lat["merged_p50"] <= lat["merged_p99"]
+            <= lat["merged_p999"]):
+        raise AssertionError(f"6f fleet_query: {len(fleet['nodes'])} nodes, "
+                             f"DevService.Xor rollup {lat}")
+    node = next(iter(slo_fleet["nodes"].values()), {})
+    if set(node) != set(names):
+        raise AssertionError(f"6f slo_fleet lists {sorted(node)}, not "
+                             f"{names}")
+    say(f"6f fleet_query: 1 node, rpc_server_DevService.Xor count "
+        f"{lat['count']} (>= {xor_calls} from 6c), merged p50/p99/p999 "
+        f"{lat['merged_p50']}/{lat['merged_p99']}/{lat['merged_p999']} us "
+        f"over {lat['samples']} samples; slo_fleet: {json.dumps(node)} "
+        f"[{dev['smi']}]")
+    if any(launches[k] < n or launches[k] <= 0 for k, n in completed.items()):
+        raise AssertionError(f"path 6: launches {launches} for >= "
+                             f"{completed} completed device calls")
+    say(f"launches on path 6: {json.dumps(launches)} (completed device "
+        f"calls >= {json.dumps(completed)})")
     return launches
 
 
@@ -2298,11 +2768,17 @@ def main():
     tt.device_init("cuda")
     say(f"DMA table at runtime start: {json.dumps(rpc.device_dma_stats())}")
     server, port = _device_server()
+    child = None
     try:
         dm_launches, dm_lat, _ = phase_device_methods(torch, dev, port)
         serve_launches, _ = phase_serving(torch, dev, port)
-        gen_launches = phase_generator(dev, port, dm_lat)
+        child = _GenChild()
+        gen_launches, gen_legs, traced = phase_generator(dev, port, dm_lat,
+                                                         child)
+        ops_launches = phase_ops_planes(dev, port, gen_legs, traced, child)
     finally:
+        if child is not None:
+            child.close()
         server.stop()
     mesh_counts = phase_global_mesh(torch, dev)
     torch_leg = phase_rpc_leg(dev)
@@ -2394,8 +2870,8 @@ def main():
         "dtypes": fold_recs,
     })
     # Path 3's kernels: launches are the runtime's own counts over path 3a
-    # (device methods), 3b (serving) and 5a (the generator), each run
-    # from 0.
+    # (device methods), 3b (serving), 5a (the generator) and 6 (the ops
+    # planes), each run from 0.
     for name, replaces, shape in (
             ("u8_transform", "cpp/tpu/serve_engine.cc:28", [1 << 20]),
             ("dot128", "cpp/tpu/pjrt_runtime.cc:207", [DOT128_K, 128]),
@@ -2406,7 +2882,7 @@ def main():
             "source": "tbus_torch/csrc/device_programs.cu",
             "replaces": replaces,
             "launches": (dm_launches[name] + serve_launches[name]
-                         + gen_launches[name]),
+                         + gen_launches[name] + ops_launches[name]),
             "match": True, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
@@ -2439,7 +2915,7 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--path4-child"]:
             code = path4_child(sys.argv[2])
         elif sys.argv[1:2] == ["--gen-child"]:
-            code = gen_child(int(sys.argv[2]), int(sys.argv[3]))
+            code = gen_child()
         else:
             code = main()
     except Exception:

@@ -379,3 +379,106 @@ def _annotate(L: ctypes.CDLL) -> None:
     L.tbus_bench_stream.argtypes = [
         c_char_p, c_char_p, c_char_p, ll, ll, *[p_dbl] * 3, p_ll, c_char_p]
     L.tbus_bench_stream.restype = c_int
+
+    # The core's ops planes, each behind the reference's guard: a
+    # prebuilt core named by TBUS_LIB may predate it (the wrappers then
+    # raise "prebuilt libtbus predates <symbol>").
+    L.tbus_cpu_profile_start.argtypes = []
+    L.tbus_cpu_profile_start.restype = c_int
+    L.tbus_cpu_profile_stop.argtypes = []
+    L.tbus_cpu_profile_stop.restype = c_void_p
+    # Flight recorder: off-CPU wait profiler, flight ring, trigger engine.
+    if has_symbol(L, "tbus_recorder_stats"):
+        L.tbus_wait_profiler_enable.argtypes = [c_int]
+        L.tbus_wait_profiler_enable.restype = None
+        L.tbus_wait_profiler_enabled.argtypes = []
+        L.tbus_wait_profiler_enabled.restype = c_int
+        L.tbus_wait_profile_reset.argtypes = []
+        L.tbus_wait_profile_reset.restype = None
+        L.tbus_flight_ring_json.argtypes = [ll]
+        L.tbus_flight_ring_json.restype = c_void_p
+        L.tbus_flight_ring_records.argtypes = []
+        L.tbus_flight_ring_records.restype = ll
+        L.tbus_recorder_arm.argtypes = [c_char_p]
+        L.tbus_recorder_arm.restype = c_int
+        L.tbus_recorder_disarm.argtypes = []
+        L.tbus_recorder_disarm.restype = None
+        L.tbus_recorder_armed.argtypes = []
+        L.tbus_recorder_armed.restype = c_int
+        L.tbus_recorder_capture.argtypes = [c_char_p, c_int]
+        L.tbus_recorder_capture.restype = ll
+        L.tbus_recorder_bundles_json.argtypes = [c_int]
+        L.tbus_recorder_bundles_json.restype = c_void_p
+        L.tbus_recorder_bundle_text.argtypes = [ll]
+        L.tbus_recorder_bundle_text.restype = c_void_p
+        for name in ("tbus_wait_profile_dump", "tbus_wait_profile_stats",
+                     "tbus_recorder_stats"):
+            getattr(L, name).argtypes = []
+            getattr(L, name).restype = c_void_p
+    # SLO plane: declared objectives and their burn-rate windows.
+    if has_symbol(L, "tbus_slo_json"):
+        for name in ("tbus_slo_json", "tbus_slo_text",
+                     "tbus_slo_fleet_json"):
+            getattr(L, name).argtypes = []
+            getattr(L, name).restype = c_void_p
+        L.tbus_slo_spec_count.argtypes = []
+        L.tbus_slo_spec_count.restype = ll
+        L.tbus_slo_burn_permille.argtypes = [c_char_p, c_int]
+        L.tbus_slo_burn_permille.restype = ll
+    # The autotune controller.
+    if has_symbol(L, "tbus_autotune_enable"):
+        L.tbus_autotune_enable.argtypes = []
+        L.tbus_autotune_enable.restype = c_int
+        L.tbus_autotune_disable.argtypes = []
+        L.tbus_autotune_disable.restype = None
+        L.tbus_autotune_stats_json.argtypes = []
+        L.tbus_autotune_stats_json.restype = c_void_p
+        L.tbus_autotune_last_good_json.argtypes = []
+        L.tbus_autotune_last_good_json.restype = c_void_p
+    # Fleet metrics plane: pushed snapshots, merged percentiles.
+    if has_symbol(L, "tbus_metrics_flush"):
+        L.tbus_server_enable_metrics_sink.argtypes = [c_void_p]
+        L.tbus_server_enable_metrics_sink.restype = c_int
+        L.tbus_metrics_set_collector.argtypes = [c_char_p]
+        L.tbus_metrics_set_collector.restype = c_int
+        L.tbus_metrics_flush.argtypes = []
+        L.tbus_metrics_flush.restype = c_int
+        L.tbus_fleet_query_json.argtypes = []
+        L.tbus_fleet_query_json.restype = c_void_p
+        L.tbus_metrics_stats_json.argtypes = []
+        L.tbus_metrics_stats_json.restype = c_void_p
+        L.tbus_metrics_sink_reset.argtypes = []
+        L.tbus_metrics_sink_reset.restype = None
+    # Zero-copy cache tier and record/replay.
+    if has_symbol(L, "tbus_cache_stats_json"):
+        size_t = ctypes.c_size_t
+        L.tbus_server_add_cache.argtypes = [c_void_p]
+        L.tbus_server_add_cache.restype = c_int
+        L.tbus_cache_set.argtypes = [
+            c_void_p, c_char_p, c_char_p, size_t, ll, c_char_p]
+        L.tbus_cache_set.restype = c_int
+        L.tbus_cache_get.argtypes = [
+            c_void_p, c_char_p, ctypes.POINTER(c_void_p),
+            ctypes.POINTER(size_t), c_char_p]
+        L.tbus_cache_get.restype = c_int
+        L.tbus_cache_del.argtypes = [c_void_p, c_char_p]
+        L.tbus_cache_del.restype = c_int
+        L.tbus_cache_stats_json.argtypes = []
+        L.tbus_cache_stats_json.restype = c_void_p
+        L.tbus_rpc_dump_enable.argtypes = [c_char_p, ctypes.c_uint]
+        L.tbus_rpc_dump_enable.restype = c_int
+        L.tbus_rpc_dump_disable.argtypes = []
+        L.tbus_rpc_dump_disable.restype = None
+        L.tbus_cache_corpus_write.argtypes = [
+            c_char_p, ull, ll, ll, size_t, c_int]
+        L.tbus_cache_corpus_write.restype = ll
+        L.tbus_replay_run.argtypes = [
+            c_char_p, c_char_p, c_char_p, dbl, c_int, c_int, c_int,
+            c_char_p]
+        L.tbus_replay_run.restype = c_void_p
+        L.tbus_cache_drill.argtypes = [c_int, c_int, c_int, size_t,
+                                       c_char_p]
+        L.tbus_cache_drill.restype = c_void_p
+        L.tbus_bench_cache.argtypes = [
+            c_char_p, size_t, ll, c_int, c_int, ll, ull, c_char_p]
+        L.tbus_bench_cache.restype = c_void_p

@@ -11,6 +11,7 @@
 #include <deque>
 #include <map>
 #include <mutex>
+#include <sstream>
 #include <thread>
 #include <vector>
 
@@ -20,6 +21,7 @@
 #include "rpc/controller.h"
 #include "rpc/errors.h"
 #include "rpc/server.h"
+#include "rpc/transport_hooks.h"
 #include "tpu/block_pool.h"
 #include "tpu/pjrt_dma.h"
 
@@ -608,6 +610,7 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
   // stride is donated (read in place, pinned); anything else is copied
   // into the plan's staging buffer, zero-padded, and counted.
   char* stage_in = be->Staging(prog.plan, false);
+  bool zero_copy = !job.inputs.empty();
   for (size_t i = 0; i < job.inputs.size(); ++i) {
     const IOBuf& in = job.inputs[i];
     const size_t off = i * stride;
@@ -622,6 +625,7 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
       }
     }
     tpu::PjrtDmaNoteDonation(donated);
+    zero_copy = zero_copy && donated;
     if (!donated) {
       in.copy_to(stage_in + off, len);
       if (stride > len) memset(stage_in + off + len, 0, stride - len);
@@ -676,6 +680,7 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
   ++rt->st.executions;
   rt->st.h2d_bytes += (long long)plen;
   rt->st.d2h_bytes += (long long)olen;
+  if (zero_copy) ++rt->st.zero_copy_h2d;
   return 0;
 }
 
@@ -780,6 +785,31 @@ int RunGuarded(Runtime* rt, Job j, size_t* produced, int64_t timeout_ms) {
   return rc;
 }
 
+// The tail of the core's /status page (and of the heap profiler's) while
+// this runtime is up: the block pool's line in the reference's format
+// (cpp/tpu/tpu_endpoint.cc), then one line for this runtime with the
+// keys of the reference's "pjrt:" line, in its order.
+std::string DeviceStatusTail() {
+  std::ostringstream os;
+  const tpu::BlockPoolStats bp = tpu::block_pool_stats();
+  os << "block_pool: regions=" << bp.regions
+     << " blocks_free=" << bp.blocks_free << "/" << bp.blocks_total;
+  for (int i = 0; i < bp.slot_classes; ++i) {
+    os << " slot" << (bp.slot_bytes[i] >> 10) << "KiB=" << bp.slot_free[i]
+       << "/" << bp.slot_total[i];
+  }
+  os << "\n";
+  const CudaStats st = CudaRuntime::Get()->stats();
+  os << "cuda_runtime: platform="
+     << (st.platform == "cuda" ? "gpu" : st.platform)
+     << " devices=" << st.devices << " compiles=" << st.plans
+     << " executions=" << st.executions << " h2d_bytes=" << st.h2d_bytes
+     << " d2h_bytes=" << st.d2h_bytes
+     << " zero_copy_h2d=" << st.zero_copy_h2d << " errors=" << st.errors
+     << "\n";
+  return os.str();
+}
+
 }  // namespace
 
 int CudaRuntime::Init(const std::string& device, const char* backend_so,
@@ -808,7 +838,11 @@ int CudaRuntime::Init(const std::string& device, const char* backend_so,
   rt->st.available = true;
   rt->st.platform = rt->backend->platform();
   rt->st.device = rt->backend->device_name();
+  rt->st.devices = 1;
+  // Installed after the core's RegisterTpuTransport (tbus_init, which the
+  // caller runs first), whose own tail would otherwise replace this one.
   g_rt = rt.release();
+  g_device_status_fn = &DeviceStatusTail;
   if (cuda != nullptr) {
     // The DMA table's backend: ranges registered before now (the pool's
     // first region, carved by tbus_init) are bound at once.

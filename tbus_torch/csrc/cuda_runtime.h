@@ -25,7 +25,11 @@
 //    output row that lies in a registered range is ALIASED (the device
 //    writes it in place, pinned). Everything else crosses through the
 //    plan's staging buffers and is counted by the tbus_pjrt_{h2d,d2h}_
-//    copy_bytes tripwires (pjrt_runtime.cc:420-480).
+//    copy_bytes tripwires (pjrt_runtime.cc:420-480);
+//  - the core's /status page (and the heap profiler's) ends with the
+//    block pool's line and this runtime's "cuda_runtime:" line, with the
+//    keys of the reference's "pjrt:" line (cpp/tpu/tpu_endpoint.cc:1330),
+//    from Init on.
 //
 // Device work sits behind a small backend interface. Init("cuda") loads
 // the CUDA backend (cuda_backend.cu, built with nvcc) and fails where
@@ -67,10 +71,12 @@ struct CudaStats {
   bool available = false;
   std::string platform;  // "cuda" or "cpu"
   std::string device;    // the card's name, or "host CPU"
+  int devices = 0;       // devices the runtime drives (one once up)
   long plans = 0;        // programs prepared (the reference's compiles)
   long executions = 0;
   long long h2d_bytes = 0;
   long long d2h_bytes = 0;
+  long zero_copy_h2d = 0;  // executions that read every input in place
   long errors = 0;
   long overcrowded = 0;  // jobs refused at the queue bound
   long long launches[kKernels] = {0, 0, 0, 0};  // by the CUDA backend

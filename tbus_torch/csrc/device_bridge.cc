@@ -202,13 +202,15 @@ char* tbus_torch_device_stats_json(void) {
   char buf[1024];
   snprintf(buf, sizeof(buf),
            "{\"available\":%s,\"platform\":\"%s\",\"device\":\"%s\","
-           "\"plans\":%ld,\"executions\":%ld,\"h2d_bytes\":%lld,"
-           "\"d2h_bytes\":%lld,\"errors\":%ld,\"overcrowded\":%ld,"
+           "\"devices\":%d,\"plans\":%ld,\"executions\":%ld,"
+           "\"h2d_bytes\":%lld,\"d2h_bytes\":%lld,\"zero_copy_h2d\":%ld,"
+           "\"errors\":%ld,\"overcrowded\":%ld,"
            "\"launches\":{\"u8_transform\":%lld,\"dot128\":%lld,"
            "\"dotbench\":%lld,\"fanout\":%lld},\"dma\":",
            st.available ? "true" : "false", st.platform.c_str(),
-           st.device.c_str(), st.plans, st.executions, st.h2d_bytes,
-           st.d2h_bytes, st.errors, st.overcrowded,
+           st.device.c_str(), st.devices, st.plans, st.executions,
+           st.h2d_bytes, st.d2h_bytes, st.zero_copy_h2d, st.errors,
+           st.overcrowded,
            st.launches[tbus::cuda::kU8Transform],
            st.launches[tbus::cuda::kDot128],
            st.launches[tbus::cuda::kDotbench],

@@ -373,7 +373,8 @@ def device_bridge_lib() -> ctypes.CDLL:
         "cuda_runtime.h", "cuda_fanout.h", "serve_engine.h")] + [
         os.path.join(_REPO, "cpp", p) for p in (
             "rpc/serve_batch.h", "rpc/server.h", "rpc/stream.h",
-            "rpc/fanout_hooks.h", "base/iobuf.h", "fiber/sync.h",
+            "rpc/fanout_hooks.h", "rpc/transport_hooks.h",
+            "base/iobuf.h", "fiber/sync.h",
             "tpu/pjrt_dma.h", "tpu/block_pool.h", "tpu/device_registry.h",
             "tpu/native_fanout.h")]
     path = _core_bridge("torch_device", "libtbus_torch_device.so", srcs, hdrs)

@@ -15,9 +15,13 @@ device work runs on the runtime's own dispatch thread; the core's C++
 load generators (:func:`bench_echo`, :func:`bench_echo_overload`,
 :func:`bench_stream`), the tpu:// per-stage timing (:func:`stage_stats`,
 :func:`timeline_dump`), rpcz spans and mesh-wide tracing, the transport
-counters; and the core's flags, variables and fault sites. Server
-handlers registered from Python run inside fibers on the native worker
-fleet; ctypes re-acquires the GIL per callback.
+counters; the core's flags, variables and fault sites; and its ops
+planes: the channel options (protocols, connection types, compression,
+cluster mode) with :class:`GrpcStub`, the flight recorder and wait
+profiler, the SLO plane, the autotune controller, the cache tier with
+record and replay, and the fleet metrics sink. Server handlers
+registered from Python run inside fibers on the native worker fleet;
+ctypes re-acquires the GIL per callback.
 
 On the protobuf-free core (``_native.core_flavor()``) what needs
 libprotobuf fails with the core's own message; nothing takes another
@@ -63,6 +67,29 @@ def _native_str(symbol: str) -> str:
     return _take_str(getattr(L, symbol)())
 
 
+def _symbol(name: str) -> ctypes.CDLL:
+    """The core, initialised, once it is known to export `name` (a
+    prebuilt core named by TBUS_LIB may predate it)."""
+    L = _native.lib()
+    L.tbus_init(0)
+    if not _native.has_symbol(L, name):
+        raise RuntimeError(f"prebuilt libtbus predates {name}")
+    return L
+
+
+def _json_of(symbol: str, *args):
+    """The JSON a core function returns (malloc'd), parsed."""
+    return json.loads(_take_str(getattr(_symbol(symbol), symbol)(*args)))
+
+
+def _report(p: Optional[int], err) -> dict:
+    """A core drill's or bench's malloc'd JSON report, or RpcError with
+    its error text when it returned none."""
+    if not p:
+        raise RpcError(-1, err.value.decode(errors="replace"))
+    return json.loads(_take_str(p))
+
+
 # ---- the device runtime (tbus_torch/csrc/cuda_runtime.cc) ----
 
 def _device_bridge() -> ctypes.CDLL:
@@ -84,6 +111,10 @@ def device_init(device: str = "cuda") -> None:
         from tbus_torch.kernels import _build
 
         backend = _build.cuda_backend().encode()
+    # The core first: its transport carves the block pool's first region
+    # (bound to the device by the runtime) and installs its /status tail
+    # once, which the runtime's own tail then replaces.
+    _native.lib().tbus_init(0)
     err = ctypes.create_string_buffer(512)
     if _device_bridge().tbus_torch_device_init(
             device.encode(), backend, err, len(err)) != 0:
@@ -97,9 +128,11 @@ def device_available() -> bool:
 
 
 def device_stats() -> dict:
-    """The device runtime's counters: platform, device, plans, executions,
-    h2d/d2h bytes, errors, overcrowded jobs, each kernel's launches (on
-    the CUDA backend) and the DMA block (device_dma_stats)."""
+    """The device runtime's counters: platform, device, devices, plans,
+    executions, h2d/d2h bytes, zero_copy_h2d (executions that read every
+    input in place), errors, overcrowded jobs, each kernel's launches (on
+    the CUDA backend) and the DMA block (device_dma_stats). The core's
+    /status page carries them too, on its "cuda_runtime:" line."""
     return json.loads(_take_str(
         _device_bridge().tbus_torch_device_stats_json()))
 
@@ -532,6 +565,268 @@ def fd_rtc_max_bytes() -> int:
     return int(L.tbus_fd_rtc_max_bytes())
 
 
+# ---- the flight recorder: wait profiler, flight ring, triggers ----
+
+def wait_profiler_enable(on: bool = True) -> None:
+    """Turns the off-CPU wait profiler on or off: the sites where fibers
+    park on a butex are sampled through a collector budget and summed per
+    backtrace, classed lock, io, timer or deadline (the /wait page)."""
+    _symbol("tbus_wait_profiler_enable").tbus_wait_profiler_enable(
+        1 if on else 0)
+
+
+def wait_profile_dump() -> str:
+    """The wait-site report, hottest first and classed (the /wait page
+    body)."""
+    return _take_str(_symbol("tbus_wait_profile_dump")
+                     .tbus_wait_profile_dump())
+
+
+def wait_profile_stats() -> dict:
+    """{"enabled", "sites", "samples", "total_wait_us", "classes":
+    {"lock": us, ...}}."""
+    return _json_of("tbus_wait_profile_stats")
+
+
+def wait_profile_reset() -> None:
+    """Zeroes every wait site's counters (the sites stay)."""
+    _symbol("tbus_wait_profile_reset").tbus_wait_profile_reset()
+
+
+def flight_ring(max_records: int = 256) -> list:
+    """The newest call completions of the always-on flight ring, newest
+    first: [{"t_us", "method", "peer", "err", "lat_us", "trace_id"},
+    ...]; empty while the ring is off (tbus_recorder_max_bytes=0)."""
+    return _json_of("tbus_flight_ring_json", int(max_records))
+
+
+def recorder_arm(triggers: str = "") -> int:
+    """Arms the anomaly watchdog with a ';'-separated trigger spec (""
+    for the defaults): p99:<var>:ratio=<x>[,min_us=<n>],
+    rate:<var>:per_s=<x>, slo:<name>:burn=<x>, divergence. Returns the
+    armed rule count; ValueError on a bad spec (nothing is armed)."""
+    n = _symbol("tbus_recorder_arm").tbus_recorder_arm(triggers.encode())
+    if n < 0:
+        raise ValueError(f"bad trigger spec: {triggers!r}")
+    return n
+
+
+def recorder_disarm() -> None:
+    _symbol("tbus_recorder_disarm").tbus_recorder_disarm()
+
+
+def recorder_capture(reason: str = "manual", profile_seconds: int = 0) -> int:
+    """Captures a bundle now (the frozen flight ring, a trace boost, the
+    CPU and wait profiles when profile_seconds > 0, which it then blocks,
+    the variables, a scheduler snapshot, the SLO state). Returns the
+    bundle id."""
+    return int(_symbol("tbus_recorder_capture").tbus_recorder_capture(
+        reason.encode(), int(profile_seconds)))
+
+
+def recorder_bundles(detail: bool = False) -> dict:
+    """The /debug/bundles store: {"bundles": [{id, t_us, reason, bytes,
+    sections{...}}, ...]}; detail=True inlines the sections' text."""
+    return _json_of("tbus_recorder_bundles_json", 1 if detail else 0)
+
+
+def recorder_bundle_text(bundle_id: int) -> str:
+    """One bundle rendered whole ("" for an unknown id)."""
+    return _take_str(_symbol("tbus_recorder_bundle_text")
+                     .tbus_recorder_bundle_text(int(bundle_id)))
+
+
+def recorder_stats() -> dict:
+    """{"armed", "rules", "fired", "bundles", "store_bytes",
+    "ring_records", "wait_sites", "wait_samples", "boosts"}."""
+    return _json_of("tbus_recorder_stats")
+
+
+# ---- the SLO plane: objectives and burn rates ----
+
+def slo_status() -> dict:
+    """The SLO registry: {"slos": [{name, burn_fast, burn_slow, burning,
+    exemplars: [...]}, ...], "fast_ms", "slow_ms"}. Objectives are
+    declared with flag_set("tbus_slo_spec",
+    "Name[@peer]:p99_us=N,avail=permille;..."); an exemplar carries its
+    trace id and, when the call carried a budget echo, its waterfall."""
+    return _json_of("tbus_slo_json")
+
+
+def slo_text() -> str:
+    """The /slo page body (burn state and exemplar waterfalls)."""
+    return _take_str(_symbol("tbus_slo_text").tbus_slo_text())
+
+
+def slo_fleet() -> dict:
+    """The sink's burn rollup (/fleet/slo): this process's objectives
+    against the burn gauges every reporting node pushed."""
+    return _json_of("tbus_slo_fleet_json")
+
+
+def slo_burn(name: str, fast: bool = True) -> float:
+    """The named SLO's burn rate over its fast or slow window (1.0 spends
+    the objective exactly as declared); KeyError when it is not
+    declared."""
+    pm = _symbol("tbus_slo_burn_permille").tbus_slo_burn_permille(
+        name.encode(), 1 if fast else 0)
+    if pm < 0:
+        raise KeyError(f"SLO not declared: {name!r}")
+    return pm / 1000.0
+
+
+# ---- the autotune controller ----
+
+def autotune_enable() -> None:
+    """Starts (or resumes) the self-tuning controller fiber: a guarded
+    hill-climb over the tunable flags (flag_domains), one at a time,
+    keeping a significant gain and reverting otherwise, freezing a flag
+    that keeps losing, and rolling the vector back to the last good one
+    when the objective collapses or errors and sheds spike. Children
+    inherit it through $TBUS_AUTOTUNE=1."""
+    _symbol("tbus_autotune_enable").tbus_autotune_enable()
+
+
+def autotune_disable() -> None:
+    """Pauses the controller in place (the flags stay where its walk
+    left them)."""
+    _symbol("tbus_autotune_disable").tbus_autotune_disable()
+
+
+def autotune_stats() -> dict:
+    """The controller's state: enabled, steps, keeps, reverts, rollbacks,
+    external aborts, frozen flags, the last objective rate, and the
+    current and last good flag vectors."""
+    return _json_of("tbus_autotune_stats_json")
+
+
+def autotune_last_good() -> dict:
+    """The last good flag vector ({flag: value}) a rollback restores."""
+    return _json_of("tbus_autotune_last_good_json")
+
+
+# ---- the fleet metrics plane ----
+
+def metrics_set_collector(addr: str) -> None:
+    """Points this process's metrics exporter at a MetricsSink
+    ("host:port"; "" turns it off): a fiber then pushes a snapshot of
+    every variable each tbus_metrics_export_interval_ms. Children inherit
+    $TBUS_METRICS_COLLECTOR."""
+    L = _symbol("tbus_metrics_set_collector")
+    if L.tbus_metrics_set_collector(addr.encode()) != 0:
+        raise RuntimeError("metrics_set_collector failed")
+
+
+def metrics_flush() -> int:
+    """Builds a snapshot now and ships what is queued. Returns the frames
+    shipped; -1 when no collector is set."""
+    return _symbol("tbus_metrics_flush").tbus_metrics_flush()
+
+
+def fleet_query() -> dict:
+    """This process's sink view of the fleet (/fleet?format=json): nodes
+    with their identity (version, start time, flag-vector hash), rollups
+    (counter sums, percentiles merged from the pooled samples), each
+    node's window history and the watchdog's outliers."""
+    text = _native_str("tbus_fleet_query_json")
+    return json.loads(text) if text else {}
+
+
+def metrics_stats() -> dict:
+    """Exporter and sink counters: exported, dropped, send_fail, bytes,
+    sink_snapshots, sink_rows, nodes, outliers, outlier_flags,
+    outlier_clears."""
+    text = _native_str("tbus_metrics_stats_json")
+    return json.loads(text) if text else {}
+
+
+def metrics_sink_reset() -> None:
+    """Drops every node from this process's sink."""
+    _symbol("tbus_metrics_sink_reset").tbus_metrics_sink_reset()
+
+
+# ---- the cache tier, record and replay ----
+
+def cache_stats() -> dict:
+    """The cache tier's counters over every store of this process (hits,
+    misses, sets, evictions, expired, shed_full, bytes, entries and the
+    hit rate; a client reads a remote store through Cache.Stats)."""
+    text = _native_str("tbus_cache_stats_json")
+    return json.loads(text) if text else {}
+
+
+def rpc_dump_enable(path: str, interval: int = 1) -> None:
+    """Samples about 1/interval of the requests this process serves into
+    `path` (rpc_dump recordio: meta "service\\nmethod\\n", the request's
+    bytes as body), the corpus replay reads."""
+    L = _symbol("tbus_rpc_dump_enable")
+    if L.tbus_rpc_dump_enable(path.encode(), int(interval)) != 0:
+        raise RuntimeError(f"rpc_dump_enable failed for {path!r}")
+
+
+def rpc_dump_disable() -> None:
+    _symbol("tbus_rpc_dump_disable").tbus_rpc_dump_disable()
+
+
+def cache_corpus_write(path: str, seed: int = 1, n: int = 1000,
+                       key_space: int = 64, value_bytes: int = 4096,
+                       set_permille: int = 100) -> int:
+    """Writes a cache workload corpus (rpc_dump recordio) from `seed`:
+    skewed keys over `key_space`, set_permille/1000 SETs. One seed gives
+    one file byte for byte. Returns the records written."""
+    n_written = _symbol("tbus_cache_corpus_write").tbus_cache_corpus_write(
+        path.encode(), int(seed), int(n), int(key_space), int(value_bytes),
+        int(set_permille))
+    if n_written < 0:
+        raise RuntimeError(f"corpus write failed for {path!r}")
+    return n_written
+
+
+def replay(path: str, addr: str, lb: str = "", qps: float = 0,
+           concurrency: int = 4, loops: int = 1,
+           verify: bool = False) -> dict:
+    """Plays an rpc_dump corpus at `qps` (0: a closed loop) against
+    `addr` (an endpoint, or a naming URL with `lb`; cache records derive
+    their request code from their key, so they shard as live traffic).
+    verify=True also proves the corpus re-frames byte for byte and that
+    echo replies equal their requests. A truncated last record is counted
+    (stats["truncated"]), not an error. Returns the stats (records,
+    played, ok, failed, hits, misses, p50_us, p99_us, qps,
+    round_trip_ok)."""
+    L = _symbol("tbus_replay_run")
+    err = ctypes.create_string_buffer(256)
+    return _report(L.tbus_replay_run(
+        path.encode(), addr.encode(), lb.encode(), float(qps),
+        int(concurrency), int(loops), 1 if verify else 0, err), err)
+
+
+def cache_reshard_drill(from_nodes: int = 2, to_nodes: int = 4,
+                        keys: int = 64, value_bytes: int = 4096) -> dict:
+    """The live-reshard drill: `to_nodes` cache shards in this process,
+    `from_nodes` of them published through file:// naming, `keys` values
+    loaded through a c_hash channel, the membership swapped to all of
+    them, and every key read again with read repair, each RPC on a
+    ledger. report["ok"] == 1: no key lost, every outcome definite."""
+    L = _symbol("tbus_cache_drill")
+    err = ctypes.create_string_buffer(256)
+    return _report(L.tbus_cache_drill(int(from_nodes), int(to_nodes),
+                                      int(keys), int(value_bytes), err), err)
+
+
+def bench_cache(addr: str, value_bytes: int = 262144, key_space: int = 96,
+                set_permille: int = 0, concurrency: int = 8,
+                duration_ms: int = 2000, seed: int = 1) -> dict:
+    """The core's keyed cache bench: preloads `key_space` values, then
+    `concurrency` fibers issue a skewed GET/SET mix back to back for
+    duration_ms. Returns {"qps", "get_mbps" (GET payload goodput),
+    "hit_rate", "p50_us", "p99_us", counts}."""
+    L = _symbol("tbus_bench_cache")
+    err = ctypes.create_string_buffer(256)
+    return _report(L.tbus_bench_cache(
+        addr.encode(), int(value_bytes), int(key_space), int(set_permille),
+        int(concurrency), int(duration_ms), int(seed), err), err)
+
+
 # ---- the torch collective fan-out backend ----
 
 # The bridge's run callback: int run(void* batch).
@@ -764,6 +1059,16 @@ class Server:
         if rc != 0:
             raise RuntimeError(f"add_sleep failed: {rc}")
 
+    def add_cache(self) -> None:
+        """Mounts the cache tier (Cache.Get/Set/Del/Stats) over this
+        process's default store: values live in pool blocks, a GET shares
+        them into the reply without a copy, TTL and LRU eviction under
+        the reloadable tbus_cache_max_bytes, ECACHEFULL (2009) when
+        full."""
+        rc = _symbol("tbus_server_add_cache").tbus_server_add_cache(self._h)
+        if rc != 0:
+            raise RuntimeError(f"add_cache failed: {rc}")
+
     def add_method(self, service: str, method: str,
                    fn: Callable[[bytes], bytes]) -> None:
         L = self._L
@@ -845,6 +1150,17 @@ class Server:
         their rpcz spans here, stitched by trace id (trace_query)."""
         if self._L.tbus_server_enable_trace_sink(self._h) != 0:
             raise RuntimeError("enable_trace_sink failed (already started?)")
+
+    def enable_metrics_sink(self) -> None:
+        """Mounts the builtin MetricsSink (call before start()): peers
+        whose tbus_metrics_collector names this server push periodic
+        snapshots of their variables here (counter deltas and raw latency
+        samples), rolled up into merged percentiles at /fleet
+        (fleet_query)."""
+        L = _symbol("tbus_server_enable_metrics_sink")
+        if L.tbus_server_enable_metrics_sink(self._h) != 0:
+            raise RuntimeError(
+                "enable_metrics_sink failed (already started?)")
 
     def set_concurrency_limiter(self, service: str, method: str,
                                 spec: str) -> None:
@@ -954,15 +1270,23 @@ class Server:
 
 
 class Channel:
-    """Client stub for one target address ("host:port", "tpu://..."),
-    with the core's default protocol and connection type."""
+    """Client stub for one target address ("host:port", "tpu://...",
+    "list://a:p,b:p" or another naming URL with lb=...).
+
+    protocol: "tbus_std" (default), "http", "h2" or "grpc"; connection:
+    "single" (multiplexed, default), "pooled" (exclusive per call) or
+    "short"; compress: 0 none, 1 gzip, 2 zlib; lb: the load balancer
+    that turns on cluster mode ("rr", "wrr", "random", "c_hash", "la")."""
 
     def __init__(self, addr: str, timeout_ms: int = 500,
-                 max_retry: int = 3) -> None:
+                 max_retry: int = 3, protocol: str = "",
+                 connection: str = "", compress: int = 0,
+                 lb: str = "") -> None:
         self._L = _native.lib()
         self._L.tbus_init(0)
         self._h = self._L.tbus_channel_new2(
-            addr.encode(), timeout_ms, max_retry, b"", b"", 0, b"")
+            addr.encode(), timeout_ms, max_retry, protocol.encode(),
+            connection.encode(), compress, lb.encode())
         if not self._h:
             raise RuntimeError(f"channel init failed for {addr!r}")
 
@@ -984,6 +1308,45 @@ class Channel:
                 if resp_len.value else b""
         finally:
             self._L.tbus_buf_free(ctypes.cast(resp, ctypes.c_char_p))
+
+    def cache_set(self, key: str, value: bytes, ttl_ms: int = 0) -> None:
+        """Keyed SET against a cache server (Server.add_cache); the
+        request code is the key's stable hash, so c_hash channels shard.
+        Raises RpcError on failure: ECACHEFULL (2009) when the store's
+        budget is spent (a definite shed, never a silent drop)."""
+        L = _symbol("tbus_cache_set")
+        err = ctypes.create_string_buffer(256)
+        rc = L.tbus_cache_set(self._h, key.encode(), value, len(value),
+                              int(ttl_ms), err)
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+
+    def cache_get(self, key: str):
+        """Keyed GET: the value on a hit, None on a definite miss;
+        RpcError when the call fails. The server replies with the
+        resident pool blocks, without a copy."""
+        L = _symbol("tbus_cache_get")
+        out = ctypes.c_void_p()
+        out_len = ctypes.c_size_t()
+        err = ctypes.create_string_buffer(256)
+        rc = L.tbus_cache_get(self._h, key.encode(), ctypes.byref(out),
+                              ctypes.byref(out_len), err)
+        if rc == 1:
+            return None
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        try:
+            return ctypes.string_at(out.value, out_len.value) \
+                if out_len.value else b""
+        finally:
+            L.tbus_buf_free(ctypes.cast(out, ctypes.c_char_p))
+
+    def cache_del(self, key: str) -> bool:
+        """Keyed DELETE: True if the key existed."""
+        rc = _symbol("tbus_cache_del").tbus_cache_del(self._h, key.encode())
+        if rc in (0, 1):
+            return rc == 0
+        raise RpcError(rc, "cache del failed")
 
     def call_progressive(self, service: str, method: str, request: bytes,
                          timeout_ms: int = 30000) -> list:
@@ -1009,6 +1372,39 @@ class Channel:
             self._L.tbus_channel_free(self._h)
         except Exception:
             pass
+
+
+class GrpcStub:
+    """A gRPC-style stub over a grpc Channel, shaped like
+    grpc.Channel.unary_unary:
+
+        stub = tbus_torch.GrpcStub("127.0.0.1:8000")
+        echo = stub.unary_unary("/example.EchoService/Echo")
+        reply_bytes = echo(request_bytes)
+
+    request_serializer / response_deserializer (protobuf's
+    SerializeToString / FromString, say) carry typed messages."""
+
+    def __init__(self, addr: str, timeout_ms: int = 10000) -> None:
+        self._ch = Channel(addr, timeout_ms=timeout_ms, protocol="grpc")
+
+    def unary_unary(self, method_path: str, request_serializer=None,
+                    response_deserializer=None):
+        service, _, method = method_path.strip("/").rpartition("/")
+        if not service or not method:
+            raise ValueError(f"bad gRPC method path {method_path!r}")
+
+        def call(request, timeout=None):
+            payload = (request_serializer(request)
+                       if request_serializer else request)
+            # A grpc timeout is in seconds: this call's deadline.
+            timeout_ms = int(timeout * 1000) if timeout else 0
+            resp = self._ch.call(service, method, payload,
+                                 timeout_ms=timeout_ms)
+            return (response_deserializer(resp)
+                    if response_deserializer else resp)
+
+        return call
 
 
 class Stream:

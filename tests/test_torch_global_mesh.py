@@ -81,23 +81,33 @@ def _free_port() -> int:
     return port
 
 
+# A launch whose ports another process of the host took or dialled tries
+# afresh: the coordinator's port is picked by bind-then-close, and gloo's
+# ranks listen on ephemeral ports, which a client elsewhere on the host
+# (one redialling a server that went away) can reach and then close.
+_PORT_RACES = ("address already in use", "connection closed by peer")
+
+
+def _launch(make_body, host_keys=None):
+    for attempt in range(3):
+        try:
+            return distributed.launch_local(make_body(), WORLD, "gloo", 120.0,
+                                            host_keys=host_keys)
+        except RuntimeError as e:
+            if (not any(r in str(e).lower() for r in _PORT_RACES)
+                    or attempt == 2):
+                raise
+
+
 @pytest.fixture(scope="module")
 def single_host():
-    return distributed.launch_local(_SINGLE_HOST, WORLD, "gloo", 120.0)
+    return _launch(lambda: _SINGLE_HOST)
 
 
 @pytest.fixture(scope="module")
 def two_hosts():
-    # The coordinator's port is picked by bind-then-close; a launch that
-    # loses it to another process before rank 0 binds tries a fresh one.
-    for attempt in range(3):
-        body = _TWO_HOSTS.format(coordinator=f"127.0.0.1:{_free_port()}")
-        try:
-            return distributed.launch_local(body, WORLD, "gloo", 120.0,
-                                            host_keys=HOSTS)
-        except RuntimeError as e:
-            if "address already in use" not in str(e).lower() or attempt == 2:
-                raise
+    return _launch(lambda: _TWO_HOSTS.format(
+        coordinator=f"127.0.0.1:{_free_port()}"), host_keys=HOSTS)
 
 
 @pytest.fixture(scope="module")
