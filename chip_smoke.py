@@ -45,6 +45,10 @@ options (http, h2, grpc through GrpcStub, gzip, zlib, pooled, short,
 lb=rr over list://), the cache tier with replay and the reshard drill
 (the host's legs), the metrics sink and the autotune controller.
 
+Path 7, the fleet drills (the shared core's rpc/fleet.cc through
+tbus_torch.rpc, with the port's node tbus_torch.rpc.FLEET_NODE) and a
+live tpu:// link redial under path 3's device traffic (K4, K5).
+
 Phases: (i) device; (ii) build: the C++ core (the protobuf-free flavour
 where protobuf is missing, as on the card's machine) with cmake+ninja
 while nvcc builds every kernel (one per source, all at once), then both
@@ -146,8 +150,23 @@ cache_reshard_drill(); (f) two metrics_flush() into a sink of this
 process: one node, DevService.Xor's rollup counting at least (c)'s
 calls, slo_fleet naming (c)'s objectives; (g) autotune over a 2 s
 tpu:// Xor leg at c=8, every tunable flag put back, 100 Xor calls
-byte-exact after. Any failure exits nonzero; the last line is the
-device JSON only on success.
+byte-exact after; (xxi) path 7's redial, after (xx) from the same
+generator child, with the runtime's launch counts reset before and read
+after: 2 s tpu:// legs at c=8 (Xor 4 KiB on K4, then Dot 1 MiB on K5,
+bench_echo_overload: no retries, every failure counted), 1 s into each a
+change of tbus_shm_lanes (and, for Dot, tbus_shm_ext_chains), the redial
+walker it starts, then link_redial(2000): at least one link
+renegotiated, the new caps on every link (shm_links()), no failed call,
+K4's and K5's launches at least the calls completed; then 100 Xor calls
+byte-equal to K4's plain version and 100 Dot calls within phase xi's
+tolerance over the redialed link, the flags put back and redialed;
+(xxii) fleet_drill at bench.py --fleet's defaults (6 port nodes, 1,200
+ms phases, seed 1) from the same generator child, held to every
+invariant of tests/test_fleet.py; (xxiii) fleet_roll at bench.py
+--roll's (4 nodes): 4 clean rolls, no call lost or failed, the
+capability skew diverged; no node (the child's process group) outlives
+its drill. Any failure exits nonzero; the
+last line is the device JSON only on success.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 """
@@ -158,6 +177,7 @@ import math
 import os
 import select
 import struct
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2251,8 +2271,9 @@ OPS_VARIANTS = [("default", {}), ("http", {"protocol": "http"}),
 
 
 def gen_child():
-    """Entry of the generator process of paths 5a and 6: runs the
-    tbus_torch.rpc calls its parent writes to stdin, one JSON line each
+    """Entry of the generator process of paths 5a, 6 and 7: runs the
+    tbus_torch.rpc calls (and _CHILD_FNS) its parent writes to stdin, one
+    JSON line each
     ({"fn", "kwargs"}), and answers each with one JSON line ({"result"}
     or {"error"})."""
     from tbus_torch import rpc
@@ -2261,7 +2282,8 @@ def gen_child():
     for line in sys.stdin:
         cmd = json.loads(line)
         try:
-            out = {"result": getattr(rpc, cmd["fn"])(**cmd["kwargs"])}
+            fn = _CHILD_FNS.get(cmd["fn"]) or getattr(rpc, cmd["fn"])
+            out = {"result": fn(**cmd["kwargs"])}
         except Exception as e:  # the parent fails the run with it
             out = {"error": f"{type(e).__name__}: {e}"}
         print(json.dumps(out), flush=True)
@@ -2278,14 +2300,18 @@ class _ChildError(AssertionError):
 
 
 class _GenChild:
-    """The generator process of paths 5a and 6 (gen_child), a second
+    """The generator process of paths 5a, 6 and 7 (gen_child), a second
     process on path 3's server: call(fn, **kwargs) runs
-    tbus_torch.rpc.fn there, each call under a deadline."""
+    tbus_torch.rpc.fn (or a function of _CHILD_FNS) there, each call
+    under a deadline."""
 
     def __init__(self):
+        # A session of its own: path 7's fleet nodes share its process
+        # group, and only theirs is checked and killed.
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--gen-child"],
-            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            start_new_session=True)
 
     def call(self, fn, **kwargs):
         self.proc.stdin.write(json.dumps({"fn": fn, "kwargs": kwargs}) + "\n")
@@ -2304,6 +2330,10 @@ class _GenChild:
         except subprocess.TimeoutExpired:
             self.proc.kill()
             self.proc.wait()
+        try:  # a node of a drill cut short
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
 
 
 def _status_lines(port):
@@ -2691,6 +2721,340 @@ def phase_ops_planes(dev, port, legs, traced, child):
     return launches
 
 
+# ---- path 7: a live tpu:// redial under device traffic, the fleet drills ----
+
+REDIAL_MS = 2000  # one redial leg
+REDIAL_AT_MS = 1000  # the flag change and link_redial, this far into it
+REDIAL_CONC = 8
+REDIAL_CALLS = 100  # Xor and Dot calls over the redialed link after the legs
+FLEET_DRILL = {"nodes": 6, "phase_ms": 1200, "seed": 1}  # bench.py --fleet
+FLEET_ROLL = {"nodes": 4, "phase_ms": 1200}  # bench.py --roll
+DRILL_KINDS = ("echo_la", "echo_chash", "fanout", "stream_chunk")
+DRILL_PHASES = ("baseline", "kill", "hang", "revive", "reshard")
+ROLL_PHASES = ("baseline", "mixed", "upgraded")
+_redial_anchor = []  # the generator child's channel holding xxi's link
+
+
+def redial_start(addr):
+    """Generator child, phase xxi: opens the channel that holds the
+    tpu:// link for the whole phase; returns this process's redial flags
+    and its live cross-process links."""
+    from tbus_torch import rpc
+
+    ch = rpc.Channel(addr, timeout_ms=60000)
+    ch.call("DevService", "Plain", b"w")
+    _redial_anchor.append(ch)
+    return {"lanes": rpc.flag_get("tbus_shm_lanes"),
+            "chains": rpc.flag_get("tbus_shm_ext_chains"),
+            "links": rpc.shm_links()}
+
+
+def redial_now(flags):
+    """Generator child: sets `flags` (redial-gated tunables), waits for the
+    redial walker the change starts to renegotiate every live link, then
+    link_redial(2000) once more; the counts, the wall times (the walker's
+    from the change until its last counter moved) and the links' caps
+    after."""
+    from tbus_torch import rpc
+
+    c0 = rpc.redial_counters()
+    t0 = time.perf_counter()
+    for name, value in flags.items():
+        rpc.flag_set(name, value)
+    c1, t1 = rpc.wait_redials_settled(c0)
+    n = rpc.link_redial(2000)
+    t2 = time.perf_counter()
+    return {"renegotiated": n, "walker": {k: c1[k] - c0[k] for k in c0},
+            "walker_ms": (t1 - t0) * 1e3, "redial_ms": (t2 - t1) * 1e3,
+            "links": rpc.shm_links()}
+
+
+def redial_leg(addr, method, size, flags):
+    """Generator child, phase xxi: a REDIAL_MS closed-loop leg at
+    REDIAL_CONC over tpu:// (bench_echo_overload: no retries, every
+    failure counted) on a thread, with redial_now(flags) REDIAL_AT_MS
+    into it."""
+    from tbus_torch import rpc
+
+    out = {}
+
+    def leg():
+        try:
+            out["leg"] = rpc.bench_echo_overload(
+                addr, "DevService", method, size, REDIAL_CONC, REDIAL_MS,
+                timeout_ms=5000)
+        except Exception as e:  # read by the parent
+            out["error"] = f"{type(e).__name__}: {e}"
+
+    t = threading.Thread(target=leg)
+    t.start()
+    try:
+        time.sleep(REDIAL_AT_MS / 1000)
+        out["redial"] = redial_now(flags)
+    finally:
+        t.join()
+    if "error" in out:
+        raise RuntimeError(out["error"])
+    return out
+
+
+def redial_checks(xor, xor_sha256, dot):
+    """Generator child, phase xxi: REDIAL_CALLS Xor and Dot calls in a
+    Python loop over the phase's link; the Xor replies whose sha256
+    differs from the parent's, and Dot's distinct replies (base64)."""
+    import base64
+    import hashlib
+
+    ch = _redial_anchor[0]
+    xor, dot = base64.b64decode(xor), base64.b64decode(dot)
+    bad = sum(hashlib.sha256(ch.call("DevService", "Xor", xor)).hexdigest()
+              != xor_sha256 for _ in range(REDIAL_CALLS))
+    dots = {ch.call("DevService", "Dot", dot) for _ in range(REDIAL_CALLS)}
+    return {"xor_bad": bad,
+            "dot": [base64.b64encode(d).decode() for d in dots]}
+
+
+def phase_redial(torch, dev, port, child, gen_legs):
+    phase("main path 7 (xxi): a live tpu:// redial under K4 and K5 traffic "
+          "from the generator child")
+    import base64
+    import hashlib
+
+    from tbus_torch import rpc
+
+    addr = f"tpu://127.0.0.1:{port}"
+    rng = np.random.default_rng(SEED + 71)
+    xor_body = rng.integers(0, 256, SIZES["4KiB"], dtype=np.uint8).tobytes()
+    dot_body = rng.standard_normal((SIZES["1MiB"] // 512, 128),
+                                   dtype=np.float32).tobytes()
+    server_lanes = rpc.flag_get("tbus_shm_lanes")
+    # The server advertises every lane: the child's flags alone decide
+    # what a redial negotiates (the smaller advert wins).
+    rpc.flag_set("tbus_shm_lanes", 4)
+    # The main path's run: every count starts at 0 here.
+    rpc.reset_device_launches()
+    try:
+        start = child.call("redial_start", addr=addr)
+        if not start["links"]:
+            raise AssertionError("xxi: no cross-process tpu:// link in the "
+                                 "generator child")
+        lanes1 = 4 if any(x["lanes"] != 4 for x in start["links"]) else 2
+        legs = [("Xor", "4KiB", {"tbus_shm_lanes": lanes1}),
+                ("Dot", "1MiB", {"tbus_shm_lanes": 1,
+                                 "tbus_shm_ext_chains": 1 - start["chains"]})]
+        done = {"u8_transform": 0, "dot128": 0}
+        for method, key, flags in legs:
+            l0 = rpc.device_stats()["launches"]
+            r = child.call("redial_leg", addr=addr, method=method,
+                           size=SIZES[key], flags=flags)
+            l1 = rpc.device_stats()["launches"]
+            leg, rd = r["leg"], r["redial"]
+            kernel = GEN_KERNEL[method]
+            failed = leg["shed"] + leg["timedout"] + leg["other"]
+            want = {"lanes": flags["tbus_shm_lanes"],
+                    "chains": flags.get("tbus_shm_ext_chains",
+                                        start["chains"])}
+            caps = {(x["lanes"], x["chains"]) for x in rd["links"]}
+            if (rd["renegotiated"] < 1 or failed != 0
+                    or caps != {(want["lanes"], want["chains"])}
+                    or l1[kernel] - l0[kernel] < leg["ok"]):
+                raise AssertionError(
+                    f"xxi {method} {key}: renegotiated "
+                    f"{rd['renegotiated']}, {failed} failed calls, link "
+                    f"caps {caps} (want {want}), {l1[kernel] - l0[kernel]} "
+                    f"{kernel} launches for {leg['ok']} calls")
+            done[kernel] += int(leg["ok"])
+            base = next(g for g in gen_legs if g["proc"] == "child"
+                        and g["transport"] == "tpu" and g["method"] == method
+                        and g["size"] == key and g["conc"] == REDIAL_CONC)
+            say(f"xxi redial {REDIAL_AT_MS} ms into a {REDIAL_MS} ms tpu:// "
+                f"{method} ({DEVICE_METHODS[method]}) {key} c={REDIAL_CONC} "
+                f"leg, flags {json.dumps(flags)}: the walker renegotiated "
+                f"{rd['walker']['renegotiated']} link(s) in "
+                f"{rd['walker_ms']:.1f} ms after the flag change, then "
+                f"link_redial(2000) renegotiated {rd['renegotiated']} in "
+                f"{rd['redial_ms']:.1f} ms (wall); link caps now "
+                f"{json.dumps(rd['links'])}; leg qps {leg['goodput_qps']:.0f}"
+                f", p50 {leg['p50_us']:.0f} us, p99 {leg['p99_us']:.0f} us, "
+                f"{int(leg['ok'])} ok, 0 failed; path 5a's leg without a "
+                f"redial: qps {base['qps']:.0f}, p50 {base['p50_us']:.0f} us"
+                f", p99 {base['p99_us']:.0f} us; {kernel} launches "
+                f"{l1[kernel] - l0[kernel]} [{dev['smi']}]")
+        truth = _xor_truth(xor_body)
+        got = child.call("redial_checks",
+                         xor=base64.b64encode(xor_body).decode(),
+                         xor_sha256=hashlib.sha256(truth).hexdigest(),
+                         dot=base64.b64encode(dot_body).decode())
+        if got["xor_bad"] or not all(
+                _device_reply_ok(torch, "Dot", dot_body, base64.b64decode(d))
+                for d in got["dot"]):
+            raise AssertionError(f"xxi: after the redials {got['xor_bad']} "
+                                 f"Xor replies differ from K4's plain "
+                                 f"version, or a Dot reply is out of "
+                                 f"phase xi's tolerance")
+        done["u8_transform"] += REDIAL_CALLS
+        done["dot128"] += REDIAL_CALLS
+        back = child.call("redial_now", flags={
+            "tbus_shm_lanes": start["lanes"],
+            "tbus_shm_ext_chains": start["chains"]})
+        launches = rpc.device_stats()["launches"]
+    finally:
+        rpc.flag_set("tbus_shm_lanes", server_lanes)
+    if any(launches[k] < n for k, n in done.items()):
+        raise AssertionError(f"path 7: launches {launches} for >= {done} "
+                             f"completed device calls")
+    say(f"xxi after both redials: {REDIAL_CALLS} Xor calls byte-equal to "
+        f"K4's plain version and {REDIAL_CALLS} Dot calls within phase xi's "
+        f"tolerance ({len(got['dot'])} distinct Dot replies), over the "
+        f"redialed link; flags put back ({start['lanes']} lanes, chains "
+        f"{start['chains']}) and redialed: {back['renegotiated']} link(s) "
+        f"in {back['redial_ms']:.1f} ms [{dev['smi']}]")
+    say(f"launches on path 7: {json.dumps(launches)} (completed device "
+        f"calls >= {json.dumps(done)})")
+    return launches
+
+
+def _group_members(pgid):
+    """Pids of the live processes of process group pgid (zombies, which
+    hold nothing, left out)."""
+    found = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, _, pgrp = f.read().rsplit(")", 1)[1].split()[:3]
+        except (OSError, ValueError):
+            continue
+        if state != "Z" and int(pgrp) == pgid:
+            found.append(int(pid))
+    return found
+
+
+def _drill_failures(r, nodes):
+    """tests/test_fleet.py's _check_invariants and its soak's error split,
+    as the list of the checks that fail."""
+    led, rb, rs = r["ledger"], r["rebalance_ms"], r["reshard"]
+    phases = {p["name"]: p for p in r["phases"]}
+    checks = {
+        "ok == 1": r["ok"] == 1, "no failures": r["failures"] == [],
+        "lost == 0": r["lost"] == 0,
+        "misaccounted == 0": r["misaccounted"] == 0,
+        "issued == resolved": led["issued"] == led["resolved"],
+        "outstanding == 0": led["outstanding"] == 0,
+        "baseline failed == 0": phases["baseline"]["failed"] == 0,
+        "0 < merged p99 <= bound":
+            0 < r["merged_p99_us"] <= r["p99_bound_us"],
+        "revived in deadline": 0 <= rb["revived"] <= rb["deadline"],
+        "resumed in deadline": 0 <= rb["resumed"] <= rb["deadline"],
+        "reshard moved": rs["from"] != rs["to"],
+        "reshard in bound": 0 <= rs["calls_to_converge"] <= rs["bound"],
+        "nodes": r["nodes"] == nodes,
+        "failed == sum(errors)":
+            led["failed"] == sum(int(v) for v in led["errors"].values())}
+    checks.update({f"{k} issued": led["kinds"][k]["issued"] > 0
+                   for k in DRILL_KINDS})
+    checks.update({f"{p} ok": phases[p]["ok"] > 0 for p in DRILL_PHASES})
+    return [name for name, held in checks.items() if not held]
+
+
+def _roll_failures(r, nodes):
+    """tests/test_fleet.py's rolling-upgrade invariants, as the list of
+    the checks that fail."""
+    led, skew = r["ledger"], r["skew"]
+    phases = {p["name"]: p for p in r["phases"]}
+    checks = {
+        "ok == 1": r["ok"] == 1, "no failures": r["failures"] == [],
+        "lost == 0": r["lost"] == 0,
+        "misaccounted == 0": r["misaccounted"] == 0,
+        "failed == 0": r["failed"] == 0,
+        "issued == resolved": led["issued"] == led["resolved"],
+        "outstanding == 0": led["outstanding"] == 0,
+        "rolls": len(r["rolls"]) == nodes,
+        "skew diverged": skew["diverged"] == 1,
+        "mixed hashes >= 2": skew["mixed_hashes"] >= 2,
+        "hash moved": skew["hash_before"] != skew["hash_after"]}
+    for st in r["rolls"]:
+        checks[f"roll {st['node']} clean"] = (
+            st["ok"] == 1 and st["drain_rpc_ok"] == 1
+            and st["forced_closes"] == 0 and min(
+                st["drain_ms"], st["respawn_ms"], st["republish_ms"]) >= 0)
+    for p in ROLL_PHASES:
+        checks[f"{p} ok, none failed"] = (phases[p]["ok"] > 0
+                                          and phases[p]["failed"] == 0)
+    return [name for name, held in checks.items() if not held]
+
+
+def _say_phases(dev, what, r):
+    for p in r["phases"]:
+        say(f"{what} phase {p['name']}: goodput {p['goodput_qps']} qps, p50 "
+            f"{p['p50_us']} us, p99 {p['p99_us']} us, {p['ok']} ok, "
+            f"{p['failed']} failed (host CPU) [{dev['smi']}]")
+
+
+def _nodes_of(child):
+    """The live processes of the generator child's group but itself: the
+    nodes of its drills."""
+    return [p for p in _group_members(child.proc.pid) if p != child.proc.pid]
+
+
+def phase_fleet(dev, child):
+    phase("main path 7 (xxii, xxiii): the fleet drill and the rolling "
+          "upgrade with the port's nodes, from the generator child of "
+          "paths 5a, 6 and xxi (host CPU; the fleet load is loopback TCP)")
+    try:
+        argv = child.call("fleet_node_argv")
+        t0 = time.perf_counter()
+        r = child.call("fleet_drill", node_argv=argv, **FLEET_DRILL)
+        drill_s = time.perf_counter() - t0
+        bad = _drill_failures(r, FLEET_DRILL["nodes"])
+        if bad:
+            raise AssertionError(f"xxii fleet_drill({FLEET_DRILL}): {bad}; "
+                                 f"{json.dumps(r)[:4000]}")
+        _say_phases(dev, "xxii drill", r)
+        led, rb, rs = r["ledger"], r["rebalance_ms"], r["reshard"]
+        say(f"xxii fleet_drill({FLEET_DRILL}) in {drill_s:.1f} s, plan "
+            f"{json.dumps(r['plan'])}: merged /fleet p99 "
+            f"{r['merged_p99_us']} us (bound {r['p99_bound_us']} us); "
+            f"rebalance revived {rb['revived']} ms, resumed {rb['resumed']} "
+            f"ms (deadline {rb['deadline']} ms); reshard {rs['from']} -> "
+            f"{rs['to']} in {rs['calls_to_converge']} calls (bound "
+            f"{rs['bound']}); ledger issued {led['issued']}, resolved "
+            f"{led['resolved']}, failed {led['failed']} "
+            f"{json.dumps(led['errors'])}, lost {r['lost']} (host CPU) "
+            f"[{dev['smi']}]")
+        t0 = time.perf_counter()
+        r = child.call("fleet_roll", node_argv=argv, **FLEET_ROLL)
+        roll_s = time.perf_counter() - t0
+        bad = _roll_failures(r, FLEET_ROLL["nodes"])
+        if bad:
+            raise AssertionError(f"xxiii fleet_roll({FLEET_ROLL}): {bad}; "
+                                 f"{json.dumps(r)[:4000]}")
+        _say_phases(dev, "xxiii roll", r)
+        for st in r["rolls"]:
+            say(f"xxiii roll node {st['node']}: drain {st['drain_ms']} ms, "
+                f"respawn {st['respawn_ms']} ms, republish "
+                f"{st['republish_ms']} ms, forced closes "
+                f"{st['forced_closes']} (host CPU) [{dev['smi']}]")
+        say(f"xxiii fleet_roll({FLEET_ROLL}) in {roll_s:.1f} s: lost "
+            f"{r['lost']}, failed {r['failed']}, ledger issued "
+            f"{r['ledger']['issued']}, skew {json.dumps(r['skew'])} "
+            f"(host CPU) [{dev['smi']}]")
+    finally:
+        end = time.monotonic() + 10
+        while _nodes_of(child) and time.monotonic() < end:
+            time.sleep(0.1)
+        left = _nodes_of(child)
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    if left:
+        raise AssertionError(f"fleet nodes outlived their drills: {left}")
+    say("no fleet node outlived its drill")
+
+
+# What the generator child runs besides tbus_torch.rpc's functions.
+_CHILD_FNS = {"redial_start": redial_start, "redial_now": redial_now,
+              "redial_leg": redial_leg, "redial_checks": redial_checks}
+
+
 def phase_global_mesh(torch, dev):
     phase("main path 5b: init by coordinator, global_mesh, and the fan-out "
           f"step at hidden {HIDDEN}")
@@ -2776,6 +3140,8 @@ def main():
         gen_launches, gen_legs, traced = phase_generator(dev, port, dm_lat,
                                                          child)
         ops_launches = phase_ops_planes(dev, port, gen_legs, traced, child)
+        redial_launches = phase_redial(torch, dev, port, child, gen_legs)
+        phase_fleet(dev, child)
     finally:
         if child is not None:
             child.close()
@@ -2870,8 +3236,8 @@ def main():
         "dtypes": fold_recs,
     })
     # Path 3's kernels: launches are the runtime's own counts over path 3a
-    # (device methods), 3b (serving), 5a (the generator) and 6 (the ops
-    # planes), each run from 0.
+    # (device methods), 3b (serving), 5a (the generator), 6 (the ops
+    # planes) and 7 (the redial), each run from 0.
     for name, replaces, shape in (
             ("u8_transform", "cpp/tpu/serve_engine.cc:28", [1 << 20]),
             ("dot128", "cpp/tpu/pjrt_runtime.cc:207", [DOT128_K, 128]),
@@ -2882,7 +3248,8 @@ def main():
             "source": "tbus_torch/csrc/device_programs.cu",
             "replaces": replaces,
             "launches": (dm_launches[name] + serve_launches[name]
-                         + gen_launches[name] + ops_launches[name]),
+                         + gen_launches[name] + ops_launches[name]
+                         + redial_launches[name]),
             "match": True, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],

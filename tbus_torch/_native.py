@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,20 +100,66 @@ def has_protobuf() -> bool:
     return _has_protobuf
 
 
+def _other_builders(build_dir: str) -> List[int]:
+    """Pids of other processes running cmake or ninja on build_dir. The
+    JAX package's loader builds the standard core in cpp/build too, under
+    a lock that holds within one process only, so only the process table
+    shows its build."""
+    want = os.path.realpath(build_dir)
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\0")
+            if os.path.basename(argv[0]) not in ("ninja", "cmake"):
+                continue
+            cwd = os.readlink(f"/proc/{pid}/cwd")
+        except OSError:  # ended, or not ours to read
+            continue
+        if any(os.path.realpath(os.path.join(cwd, a)) == want
+               for a in argv[1:] if a):
+            found.append(int(pid))
+    return found
+
+
+def _wait_for_other_builders(build_dir: str) -> None:
+    """Waits until no other process builds in build_dir: a second ninja
+    there relinks the library under the first one's feet, and a dlopen
+    while the linker writes it loads half a library (a crash, "file too
+    short", or missing symbols)."""
+    deadline = time.monotonic() + 900
+    while _other_builders(build_dir):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"another build in {build_dir} has run for "
+                               f"over 900 s")
+        time.sleep(0.5)
+
+
 def _build_core(lib: str, sources: List[str], configure: List[str],
                 build_dir: str) -> str:
+    """Builds `lib` if it is stale, configuring build_dir only once
+    (ninja reruns cmake when a CMakeLists.txt changes). It neither
+    builds beside, nor returns `lib` for loading during, another build
+    in build_dir: a ninja there may relink `lib` at any time until it
+    ends, one started beside ours too."""
     with _lock:
+        _wait_for_other_builders(build_dir)
         if not _stale(lib, sources):
             return lib
         os.makedirs(os.path.dirname(_LOCK_FILE), exist_ok=True)
         with open(_LOCK_FILE, "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)
+            _wait_for_other_builders(build_dir)
             if not _stale(lib, sources):  # another process built it
                 return lib
-            subprocess.run(configure, cwd=_REPO, check=True,
-                           capture_output=True, text=True)
+            if not os.path.exists(os.path.join(build_dir, "build.ninja")):
+                subprocess.run(configure, cwd=_REPO, check=True,
+                               capture_output=True, text=True)
             subprocess.run(["ninja", "-C", build_dir, "tbus"], cwd=_REPO,
                            check=True, capture_output=True, text=True)
+        _wait_for_other_builders(build_dir)
     return lib
 
 
@@ -449,6 +496,19 @@ def _annotate(L: ctypes.CDLL) -> None:
         L.tbus_metrics_stats_json.restype = c_void_p
         L.tbus_metrics_sink_reset.argtypes = []
         L.tbus_metrics_sink_reset.restype = None
+    # The fleet drills: the chaos drill and its node, the live link
+    # redial and the rolling upgrade.
+    if has_symbol(L, "tbus_fleet_drill"):
+        L.tbus_fleet_node_run.argtypes = []
+        L.tbus_fleet_node_run.restype = c_int
+        L.tbus_fleet_drill.argtypes = [c_char_p, c_int, ll, ull, c_char_p]
+        L.tbus_fleet_drill.restype = c_void_p
+    if has_symbol(L, "tbus_fleet_roll"):
+        L.tbus_link_redial.argtypes = [ll]
+        L.tbus_link_redial.restype = c_int
+        L.tbus_fleet_roll.argtypes = [c_char_p, c_int, ll, c_char_p,
+                                      c_char_p]
+        L.tbus_fleet_roll.restype = c_void_p
     # Zero-copy cache tier and record/replay.
     if has_symbol(L, "tbus_cache_stats_json"):
         size_t = ctypes.c_size_t

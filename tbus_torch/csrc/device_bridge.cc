@@ -43,6 +43,7 @@
 #include "tpu/block_pool.h"
 #include "tpu/device_registry.h"
 #include "tpu/pjrt_dma.h"
+#include "tpu/tpu_endpoint.h"
 
 using tbus::cuda::CudaRuntime;
 
@@ -350,6 +351,24 @@ int tbus_torch_block_pool_enabled(void) {
 }
 
 char* tbus_torch_dma_stats_json(void) { return dup_str(dma_stats_json()); }
+
+// This process's live cross-process tpu:// client links (the set
+// tbus_link_redial walks), each with its negotiated lane count and chain
+// capability: [{"socket":id,"lanes":n,"chains":0|1},...].
+char* tbus_torch_shm_links_json(void) {
+  std::ostringstream os;
+  os << "[";
+  bool first = true;
+  for (const tbus::SocketId sid : tbus::tpu::ShmClientLinks()) {
+    int lanes = 0, chains = 0;
+    if (tbus::tpu::TpuLinkCaps(sid, &lanes, &chains) != 0) continue;
+    os << (first ? "" : ",") << "{\"socket\":" << sid
+       << ",\"lanes\":" << lanes << ",\"chains\":" << chains << "}";
+    first = false;
+  }
+  os << "]";
+  return dup_str(os.str());
+}
 
 // The table's own calls, for the registration and pin drills.
 int tbus_torch_dma_register_range(void* base, long long bytes) {

@@ -376,7 +376,7 @@ def device_bridge_lib() -> ctypes.CDLL:
             "rpc/fanout_hooks.h", "rpc/transport_hooks.h",
             "base/iobuf.h", "fiber/sync.h",
             "tpu/pjrt_dma.h", "tpu/block_pool.h", "tpu/device_registry.h",
-            "tpu/native_fanout.h")]
+            "tpu/native_fanout.h", "tpu/tpu_endpoint.h")]
     path = _core_bridge("torch_device", "libtbus_torch_device.so", srcs, hdrs)
     vp, ll, i, cp = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_char_p)
@@ -397,6 +397,7 @@ def device_bridge_lib() -> ctypes.CDLL:
         ("tbus_torch_dma_unregister", [vp], i),
         ("tbus_torch_dma_is_registered", [vp, ll], i),
         ("tbus_torch_dma_region_count", [], ll),
+        ("tbus_torch_shm_links_json", [], vp),
         ("tbus_torch_dma_pin", [vp, ll], i),
         ("tbus_torch_dma_unpin", [i], None),
         ("tbus_torch_pool_alloc", [ll], vp),

@@ -32,7 +32,12 @@ from __future__ import annotations
 
 import ctypes
 import json
+import contextlib
+import os
+import signal
+import sys
 import threading
+import time
 import traceback
 from typing import Callable, Optional
 
@@ -167,6 +172,12 @@ def device_dma_stats() -> dict:
     unregisters, and host_registered: the ranges the CUDA backend bound
     with cudaHostRegister (read-only ones, and failures, which stage)."""
     return json.loads(_take_str(_device_bridge().tbus_torch_dma_stats_json()))
+
+
+def device_registered_regions() -> int:
+    """Pool and peer regions currently DMA-registered with the device
+    runtime (the reference's tbus_pjrt_registered_regions gauge)."""
+    return int(_device_bridge().tbus_torch_dma_region_count())
 
 
 def pjrt_h2d_copy_bytes() -> int:
@@ -825,6 +836,162 @@ def bench_cache(addr: str, value_bytes: int = 262144, key_space: int = 96,
     return _report(L.tbus_bench_cache(
         addr.encode(), int(value_bytes), int(key_space), int(set_permille),
         int(concurrency), int(duration_ms), int(seed), err), err)
+
+
+# ---- the fleet drills and live reconfiguration (cpp/rpc/fleet.cc) ----
+
+# The port's fleet node, the launch contract of fleet_drill and
+# fleet_roll (the process prints its port on stdout, then parks until
+# the supervisor kills it). TBUS_LIB names the supervisor's own core, so
+# a node neither builds nor looks for one. The node arms its metrics
+# exporter only after one loopback call with an hour's timeout has
+# started the core's timer thread: the thread can miss the wakeup of the
+# first timer it is given (cpp/fiber/timer_thread.cc reads its futex word
+# after dropping its lock), and an exporter whose first sleep is missed
+# never reports, so the supervisor gives up on the node (ROADMAP C). A
+# missed hour-long timer is harmless: the exporter's earlier one wakes
+# the thread.
+#
+# A node unblocks SIGPROF first: it inherits the mask of the supervisor's
+# thread, which blocks it for the drill (_sigprof_blocked).
+FLEET_NODE = r"""
+import os
+import signal
+import sys
+import time
+signal.pthread_sigmask(signal.SIG_UNBLOCK, {signal.SIGPROF})
+sys.path.insert(0, %(root)r)
+os.environ["TBUS_LIB"] = %(lib)r
+collector = os.environ.pop("TBUS_METRICS_COLLECTOR", "")
+import tbus_torch
+tbus_torch.init()
+warm = tbus_torch.Server()
+warm.add_echo()
+tbus_torch.Channel(f"127.0.0.1:{warm.start(0)}", 3600000).call(
+    "EchoService", "Echo", b"")
+warm.stop()
+time.sleep(0.02)
+tbus_torch.metrics_set_collector(collector)
+raise SystemExit(tbus_torch.fleet_node_run())
+"""
+
+
+def fleet_node_argv() -> list:
+    """The argv of one port fleet node (FLEET_NODE in this interpreter,
+    on the core this process loaded), for fleet_drill and fleet_roll."""
+    return [sys.executable, "-c", FLEET_NODE % {
+        "root": os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "lib": _native.lib()._name}]
+
+
+def fleet_node_run() -> int:
+    """Runs THIS process as a canonical fleet node (Fleet.Echo,
+    Fleet.Chunks stream sink, Ctl.Fi remote fault control): prints the
+    bound port on stdout, then parks until the supervisor kills it. The
+    metrics exporter arms itself from $TBUS_METRICS_COLLECTOR. Only
+    returns (nonzero) on startup failure."""
+    return _symbol("tbus_fleet_node_run").tbus_fleet_node_run()
+
+
+@contextlib.contextmanager
+def _sigprof_blocked():
+    """SIGPROF blocked on this thread. A drill's supervisor sleeps out
+    each phase on the calling thread in a nanosleep that the core does not
+    resume after a signal (cpp/fiber/scheduler.cc fiber_usleep off a
+    fiber), and the drill's own SLO leg starts the core's CPU profiler:
+    a SIGPROF delivered to this thread ended a phase at once, with no call
+    in it (ROADMAP C)."""
+    old = signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGPROF})
+    try:
+        yield
+    finally:
+        signal.pthread_sigmask(signal.SIG_SETMASK, old)
+
+
+def fleet_drill(node_argv, nodes: int = 6, phase_ms: int = 1200,
+                seed: int = 1) -> dict:
+    """The fleet soak-and-elasticity chaos drill: fork/execs `nodes`
+    node processes from `node_argv` (each must print its port on stdout,
+    e.g. fleet_node_argv()), publishes membership through file:// naming
+    with atomic rename-swap, drives mixed echo + stream + fan-out load,
+    and executes the seeded chaos plan (1 SIGKILL, 1 SIGSTOP
+    gray-failure hang, 1 revival, 1 live reshard). Returns the report
+    dict: phases, per-call ledger (zero silently-lost calls), merged
+    /fleet p99 vs bound, rebalance timings, reshard convergence;
+    report["ok"] == 1 when every invariant held."""
+    L = _symbol("tbus_fleet_drill")
+    err = ctypes.create_string_buffer(256)
+    with _sigprof_blocked():
+        p = L.tbus_fleet_drill("\x1f".join(node_argv).encode(), int(nodes),
+                               int(phase_ms), int(seed), err)
+    return _report(p, err)
+
+
+def link_redial(timeout_ms: int = 2000) -> int:
+    """Redials every live cross-process tpu:// client link with this
+    process's CURRENT tbus_shm_lanes / tbus_shm_ext_chains flags (set
+    them first via flag_set): each link quiesces at a unit boundary,
+    renegotiates caps over its still-open TCP fd and swaps shm segments
+    live; in-flight calls complete, none fail. Returns the number of
+    links renegotiated."""
+    return _symbol("tbus_link_redial").tbus_link_redial(int(timeout_ms))
+
+
+def fleet_roll(node_argv, nodes: int = 4, phase_ms: int = 1200,
+               upgrade_flags: str = None) -> dict:
+    """Rolling fleet upgrade drill: starts `nodes` processes from
+    `node_argv` (the fleet_drill launch contract: each prints its port
+    on stdout), drives mixed load, then rolls every node in sequence:
+    drain RPC, wait-quiesced via pushed gauges, respawn with
+    `upgrade_flags` ("name=value,..." applied through TBUS_NODE_FLAGS;
+    None keeps the default lanes/chains downgrade), republish, holding a
+    capability-skew window mid-roll. Returns the report dict: per-node
+    drain/respawn/republish latencies, flag-hash divergence evidence,
+    and the zero-lost + zero-failed call ledger; report["ok"] == 1 when
+    every invariant held."""
+    L = _symbol("tbus_fleet_roll")
+    err = ctypes.create_string_buffer(256)
+    flags = upgrade_flags.encode() if upgrade_flags is not None else None
+    with _sigprof_blocked():
+        p = L.tbus_fleet_roll("\x1f".join(node_argv).encode(), int(nodes),
+                              int(phase_ms), flags, err)
+    return _report(p, err)
+
+
+def shm_links() -> list:
+    """This process's live cross-process tpu:// client links (the set
+    link_redial walks), each with the caps its last handshake or redial
+    negotiated: [{"socket", "lanes", "chains"}]."""
+    return json.loads(_take_str(_device_bridge().tbus_torch_shm_links_json()))
+
+
+def redial_counters() -> dict:
+    """The core's redial counters: attempts, renegotiated, fallbacks."""
+    return {k: int(var_value(f"tbus_redial_{k}") or 0)
+            for k in ("attempts", "renegotiated", "fallbacks")}
+
+
+def wait_redials_settled(before=None, quiet_s: float = 0.05,
+                         timeout_s: float = 15.0):
+    """Waits for the redial walker that a tbus_shm_lanes or
+    tbus_shm_ext_chains change starts on every live link: until it has
+    attempted since `before` (a redial_counters(); None asks for no new
+    attempt), every attempt renegotiated or fell back, and no counter
+    moved for quiet_s. A link_redial while the walker runs collides with
+    it and counts 0. Returns the counters and the time.perf_counter()
+    they last moved at; raises after timeout_s."""
+    end = time.monotonic() + timeout_s
+    last, since = None, time.perf_counter()
+    while time.monotonic() < end:
+        c = redial_counters()
+        if c != last:
+            last, since = c, time.perf_counter()
+        elif ((before is None or c["attempts"] > before["attempts"])
+              and c["attempts"] == c["renegotiated"] + c["fallbacks"]
+              and time.perf_counter() - since >= quiet_s):
+            return c, since
+        time.sleep(0.002)
+    raise RpcError(-1, f"redial walker unsettled: {before} -> {last}")
 
 
 # ---- the torch collective fan-out backend ----
