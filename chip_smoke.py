@@ -11,8 +11,10 @@ bridge's executor forms them (up to kMaxBatch = 16 calls).
 Path 2, the graft entry (tbus_torch.entry, the twin of
 __graft_entry__.py): the fan-out training step
 (tbus_torch.parallel.collective.make_fanout_step) with its bf16 GEMM (K1)
-and dW (K2) kernels (tbus_torch/csrc/gemm_bf16.cu), and ring attention
-with its online-softmax fold kernel (K3, tbus_torch/csrc/ring_fold.cu).
+and dW (K2) kernels (tbus_torch/csrc/gemm_bf16.cu), its loss (K8a), the
+loss's gradient (K8b) and the update (K9) (tbus_torch/csrc/loss_update.cu),
+and ring attention with its online-softmax fold kernel (K3,
+tbus_torch/csrc/ring_fold.cu).
 The card is one H100 and NCCL takes one rank per card, so the step's
 dp/tp collectives run as a one-rank NCCL group (their multi-rank
 behaviour is held on the CPU by tests/test_torch_collectives.py).
@@ -65,20 +67,26 @@ entry's shape, at hidden 4096 x rows 4096, at the shared TMA + wgmma
 GEMM's tile edges and at long K, timed beside their bounds and cuBLAS
 (torch.mm bf16 -> f32, with and without its casts; torch.matmul f32), K1
 and K2 in parts (pack and GEMM, from the profiler), both packs bit-equal
-to their plain versions; (viii) K3 against its plain version over 4
-carried folds at 8192 x 8192 x 128 (32K context on a 4-position ring),
+to their plain versions; then K8a, K8b and K9 against their plain
+versions at the entry's y [4, 16] and w [16, 16], at 1000 x 37, at a view
+one float into a buffer and at 4096 x 4096 (K8a to rtol 1e-5 and equal
+between two calls, K8b and K9 bit for bit), timed beside their bounds,
+their plain versions and torch.dot, torch.mul and torch.sub; (viii) K3
+against its plain version over 4 carried folds at 8192 x 8192 x 128 (32K
+context on a 4-position ring),
 in f32 and bf16, with the fused last fold (o / l in q's dtype), timed
 beside its bound (the split-term design's bf16 passes, the f32 FMA
 figure beside) and scaled_dot_product_attention, in parts (pack, fold,
 combine), and at head dims 256 and 200 (the chunked f32 FMA kernel);
 (ix) path 2 through
 entry(device="cuda") at the entry's shapes and at hidden 4096, and
-make_ring_attention at seq 8192, with the K1, K2 and K3 counts reset
-before and read after, held against the same step on the CPU's plain
-path and against plain full attention, with the step's wall time and
-device-busy share; (x) dryrun_multichip(1) in its own process; (xi) K4,
-K5 and K6 against their plain versions at path 3's shapes (the 256 KiB
-serving step, 4 KiB and 1 MiB payloads, dot128 at k = 2048,
+make_ring_attention at seq 8192, with the K1, K2, K8a, K8b, K9 and K3
+counts reset before and read after, held against the same step on the
+CPU's plain path and against plain full attention, with the step's wall
+time, device-busy share and every device op over 1% of busy time; (x)
+dryrun_multichip(1) in its own process; (xi) K4, K5 and K6 against
+their plain versions at path 3's shapes (the 256 KiB serving step, 4 KiB
+and 1 MiB payloads, dot128 at k = 2048,
 dotbench4096x32 and chains at the GEMM's tile edges): K4 byte for byte,
 also through the library with in and out at one offset (a scalar head)
 and as its first design's kernel (v1); K5 on normal payloads and on rows
@@ -126,10 +134,10 @@ completed, one traced call's client and server rpcz spans, and the
 wires and surfaces that fail on the card's core; (xix) path 5b:
 init("127.0.0.1:<port>", 1, 0), global_mesh(("dp", "tp")) and the
 fan-out step at hidden 4096 x rows 4096, equal bit for bit to the step
-on default_mesh(1), with its wall p50 and the K1 and K2 counts reset
-before and read after; (xx) path 6, run after (xviii) while path 3's
-server is up, with the runtime's launch counts reset before and read
-after, its calls made from path 5a's generator child: (a)
+on default_mesh(1), with its wall p50 and the K1, K2, K8a, K8b and K9
+counts reset before and read after; (xx) path 6, run after (xviii) while
+path 3's server is up, with the runtime's launch counts reset before and
+read after, its calls made from path 5a's generator child: (a)
 wait_profile_* in the server process over 1 s tpu:// legs at c=1
 (native echo and Echo at 4 KiB, Dot at 1 MiB) with each leg's five
 hottest wait sites, its classes and the sites through the port's
@@ -775,6 +783,107 @@ def phase_gemm(torch, dev):
     return out
 
 
+# The step's loss, its gradient and the update: y [R, N/tp] and w [K, N/tp]
+# at the entry's shapes and at hidden 4096 (timed), a ragged shape and a
+# view one float into a buffer (checked only).
+LOSS_TIMED = [(4, 16), (16, 16), (HIDDEN, HIDDEN)]
+LOSS_CASES = LOSS_TIMED[:2] + [(1000, 37), "offset", LOSS_TIMED[2]]
+
+
+def _loss_tensor(torch, rng, case, scale=1.0):
+    if case == "offset":
+        buf = rng.standard_normal(1000 * 37 + 1, dtype=np.float32)
+        return (torch.from_numpy(buf * np.float32(scale)).cuda()[1:]
+                .view(1000, 37))
+    return torch.from_numpy(rng.standard_normal(case, dtype=np.float32)
+                            * np.float32(scale)).cuda()
+
+
+def phase_loss_update(torch, dev):
+    phase("kernels K8a, K8b, K9: the step's loss, its gradient and the "
+          "update against plain versions")
+    from tbus_torch.kernels import loss_update as lu
+
+    rng = np.random.default_rng(SEED + 13)
+    out = {"sumsq": {}, "sumsq_grad": {}, "sgd_update": {}}
+    for case in LOSS_CASES:
+        y = _loss_tensor(torch, rng, case)
+        w = _loss_tensor(torch, rng, case, 0.02)
+        g = _loss_tensor(torch, rng, case, 37.0)
+        gb = torch.tensor(0.37, device="cuda")
+        s1, s2 = lu.sumsq(y), lu.sumsq(y)
+        sp = lu.sumsq_reference(y)
+        dy, dyp = lu.sumsq_grad(y, gb), lu.sumsq_grad_reference(y, gb)
+        w1, w1p = lu.sgd_update(w, g, 1e-3), lu.sgd_update_reference(w, g,
+                                                                      1e-3)
+        torch.cuda.synchronize()
+        k8a_err = float((s1 - sp).abs())
+        k8a_ok = (k8a_err <= 1e-5 * float(sp.abs())
+                  and torch.equal(s1.view(torch.int32), s2.view(torch.int32)))
+        k8b_ok = torch.equal(dy.view(torch.int32), dyp.view(torch.int32))
+        k9_ok = torch.equal(w1.view(torch.int32), w1p.view(torch.int32))
+        say(f"K8a, K8b, K9 at {case}: K8a {float(s1)} vs plain {float(sp)} "
+            f"(|k-p| {k8a_err:.3g}, rtol 1e-5; two calls bit-equal "
+            f"{torch.equal(s1, s2)}), K8b bit-equal {k8b_ok}, K9 bit-equal "
+            f"{k9_ok}")
+        if not (k8a_ok and k8b_ok and k9_ok):
+            raise AssertionError(f"loss/update kernels at {case}: K8a ok "
+                                 f"{k8a_ok}, K8b {k8b_ok}, K9 {k9_ok}")
+        if case not in LOSS_TIMED:
+            continue
+        n = y.numel()
+        iters = 20 if n > 1e6 else 200
+        g2 = 2 * gb
+        yv = y.view(-1)
+        for name, kern, plain, lib, nbytes, err, kname in (
+                ("sumsq", lambda: lu.sumsq(y), lambda: lu.sumsq_reference(y),
+                 lambda: torch.dot(yv, yv), 4 * n + 4, k8a_err,
+                 {"pass1_ms": "sumsq_kernel",
+                  "finish_ms": "sumsq_finish_kernel"}),
+                ("sumsq_grad", lambda: lu.sumsq_grad(y, gb),
+                 lambda: lu.sumsq_grad_reference(y, gb),
+                 lambda: torch.mul(y, g2), 8 * n + 4, 0.0,
+                 {"device_ms": "sumsq_grad_kernel"}),
+                ("sgd_update", lambda: lu.sgd_update(w, g, 1e-3),
+                 lambda: lu.sgd_update_reference(w, g, 1e-3),
+                 lambda: torch.sub(w, g, alpha=1e-3), 12 * n, 0.0,
+                 {"device_ms": "sgd_update_kernel"})):
+            ms = _cuda_ms(torch, kern, iters)
+            plain_ms = _cuda_ms(torch, plain, iters)
+            lib_ms = _cuda_ms(torch, lib, iters)
+            op_ms = 2.0 * n / F32_FLOPS * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            rec = out[name][case] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": max(op_ms, bytes_ms),
+                "bound_by": "operations" if op_ms > bytes_ms else "bytes",
+                "max_abs_err": err}
+            if n > 1e6:  # on the card's own clock, no host launch cost
+                rec.update(_device_parts(torch, kern, iters, kname))
+                rec["device_ms"] = sum(rec[k] for k in kname)
+                rec["library_device_ms"] = _device_call_ms(torch, lib, iters)
+        for name, lib in (("sumsq", "torch.dot"),
+                          ("sumsq_grad", "torch.mul by 2 gbar"),
+                          ("sgd_update", "torch.sub alpha=1e-3, rounded "
+                                         "twice")):
+            r = out[name][case]
+            say(f"{name} {case}: {r['ms'] * 1e3:.2f} us (CUDA events, "
+                f"{iters} back to back) vs bound {r['bound_ms'] * 1e3:.2f} "
+                f"us ({r['bound_by']}) = "
+                f"{r['bound_ms'] / r['ms'] * 100:.1f}%; plain "
+                f"{r['plain_ms'] * 1e3:.2f} us; {lib} "
+                f"{r['library_ms'] * 1e3:.2f} us"
+                + (f"; on the device's clock (profiler): kernel "
+                   f"{r['device_ms'] * 1e3:.2f} us = "
+                   f"{r['bound_ms'] / r['device_ms'] * 100:.1f}% of the "
+                   f"bound, library {r['library_device_ms'] * 1e3:.2f} us"
+                   if "device_ms" in r else "")
+                + (f" (first pass {r['pass1_ms'] * 1e3:.2f} us, finish "
+                   f"{r['finish_ms'] * 1e3:.2f} us)" if "pass1_ms" in r
+                   else "") + f" [{dev['smi']}]")
+    return out
+
+
 def _fold_inputs(torch, rng, dtype):
     lq, lk, d, folds = FOLD
     q = torch.from_numpy(rng.standard_normal((lq, d), dtype=np.float32))
@@ -933,12 +1042,12 @@ def _check_big_step(torch, w, x, loss, w1, losses):
     reference's lr of 1e-3 is above this width's stable step 2 / lambda_max
     of the loss's Hessian 2 x^T x, so the loss rises from step to step,
     as the reference's would; the script prints both."""
-    from tbus_torch.kernels import gemm, ieee_fp32
+    from tbus_torch.kernels import gemm, ieee_fp32, loss_update as lu
 
     y = gemm.matmul_bf16_f32_reference(x, w)
-    want_loss = float((y * y).sum())
+    want_loss = float(lu.sumsq_reference(y))
     g = gemm.dw_reference(x, 2 * y)
-    want_w1 = w - 1e-3 * g
+    want_w1 = lu.sgd_update_reference(w, g, 1e-3)
     ulp = _bf16_ulp(torch, g)
     dy_gap = 2 * (gemm.matmul_bf16_f32(x, w) - y).abs()
     with ieee_fp32():
@@ -972,7 +1081,7 @@ def phase_entry(torch, dev, tmp):
     from torch.distributed.device_mesh import init_device_mesh
 
     from tbus_torch import entry
-    from tbus_torch.kernels import gemm, ring_fold as rf
+    from tbus_torch.kernels import gemm, loss_update as lu, ring_fold as rf
     from tbus_torch.parallel import collective, distributed
 
     # The same step on the CPU's plain path (a one-rank gloo group).
@@ -988,7 +1097,8 @@ def phase_entry(torch, dev, tmp):
     try:
         # The main path's run: every count starts at 0 here.
         gemm.matmul_launches = gemm.dw_launches = rf.launches = 0
-        collective.ring_rotations = 0
+        lu.sumsq_launches = lu.sumsq_grad_launches = 0
+        lu.sgd_update_launches = collective.ring_rotations = 0
         step, (w, x) = entry.entry("cuda")
         losses, w1 = _run_steps(step, w, x, 1)
         losses += _run_steps(step, w1, x, 1)[0]
@@ -1005,11 +1115,13 @@ def phase_entry(torch, dev, tmp):
         torch.cuda.synchronize()
         counts = {"matmul_bf16_f32": gemm.matmul_launches,
                   "dw_f32_bf16": gemm.dw_launches,
+                  "sumsq": lu.sumsq_launches,
+                  "sumsq_grad": lu.sumsq_grad_launches,
+                  "sgd_update": lu.sgd_update_launches,
                   "ring_fold": rf.launches,
                   "ring_rotations": collective.ring_rotations}
         say(f"main-path 2 counts: {json.dumps(counts)}")
-        if min(counts["matmul_bf16_f32"], counts["dw_f32_bf16"],
-               counts["ring_fold"]) <= 0:
+        if min(v for k, v in counts.items() if k != "ring_rotations") <= 0:
             raise AssertionError(f"main path 2 missed a kernel: {counts}")
 
         loss_err = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
@@ -1036,8 +1148,10 @@ def phase_entry(torch, dev, tmp):
             wall = _wall_p50_us(torch, fn, n)
             prof_us, rows = _device_profile(torch, fn, n_prof)
             per_call, busy = prof_us / n_prof, sum(r[1] for r in rows)
-            for key, us, cnt in rows[:5]:
-                say(f"  {name}: device {us:9.1f} us x{cnt:g}  {key[:60]}")
+            for key, us, cnt in rows:  # every device op over 1% of busy
+                if us >= 0.01 * busy:
+                    say(f"  {name}: device {us:9.1f} us x{cnt:g} "
+                        f"({us / busy * 100:.1f}%)  {key[:60]}")
             say(f"{name}: wall p50 {wall:.0f} us (host clock, n={n}); "
                 f"profiled wall {per_call:.0f} us, device busy {busy:.0f} "
                 f"us = {busy / per_call * 100:.1f}% [{dev['smi']}]")
@@ -3061,7 +3175,7 @@ def phase_global_mesh(torch, dev):
     import socket
 
     from tbus_torch import entry
-    from tbus_torch.kernels import gemm
+    from tbus_torch.kernels import gemm, loss_update as lu
     from tbus_torch.parallel import collective, distributed
 
     s = socket.socket()
@@ -3075,12 +3189,17 @@ def phase_global_mesh(torch, dev):
             raise AssertionError(f"global_mesh on one card: {mesh}")
         # The main path's run: every count starts at 0 here.
         gemm.matmul_launches = gemm.dw_launches = 0
+        lu.sumsq_launches = lu.sumsq_grad_launches = 0
+        lu.sgd_update_launches = 0
         step, (w, x) = entry._make(mesh, hidden=HIDDEN, rows=HIDDEN)
         loss, w1 = step(w, x)
         wall = _wall_p50_us(torch, lambda: step(w, x), 10)
         torch.cuda.synchronize()
         counts = {"matmul_bf16_f32": gemm.matmul_launches,
-                  "dw_f32_bf16": gemm.dw_launches}
+                  "dw_f32_bf16": gemm.dw_launches,
+                  "sumsq": lu.sumsq_launches,
+                  "sumsq_grad": lu.sumsq_grad_launches,
+                  "sgd_update": lu.sgd_update_launches}
         if min(counts.values()) <= 0:
             raise AssertionError(f"path 5b missed a kernel: {counts}")
         ref, (rw, rx) = entry._make(collective.default_mesh(1, "cuda"),
@@ -3123,6 +3242,7 @@ def main():
     launches = phase_main(dev)
     phase_profile(torch, dev)
     gemm_recs = phase_gemm(torch, dev)
+    loss_recs = phase_loss_update(torch, dev)
     fold_recs = phase_fold(torch, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         counts = phase_entry(torch, dev, tmp)
@@ -3222,6 +3342,21 @@ def main():
             kernels[-1].update({
                 "design": rec["design"], "fma_bound_ms": rec["fma_bound_ms"],
                 "pack_ms": rec["pack_ms"], "gemm_ms": rec["gemm_ms"]})
+    for name, replaces in (
+            ("sumsq", "tbus/parallel/collective.py:194"),
+            ("sumsq_grad", "tbus/parallel/collective.py:206"),
+            ("sgd_update", "tbus/parallel/collective.py:207")):
+        rec = loss_recs[name][(HIDDEN, HIDDEN)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tbus_torch/csrc/loss_update.cu", "replaces": replaces,
+            "launches": counts[name] + mesh_counts[name], "match": True,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": [HIDDEN, HIDDEN],
+            "shapes": {str(list(k)): v for k, v in loss_recs[name].items()},
+        })
     f32 = fold_recs["float32"]
     kernels.append({
         "name": "ring_fold", "route": "cuda",

@@ -1,10 +1,10 @@
 """Builds the port's native pieces at first use into tbus_torch/_build/.
 
 - the CUDA kernels, one ``nvcc`` per source: ``row_transform.cu``,
-  ``gemm_bf16.cu`` (K1, K2), ``ring_fold.cu`` (K3) and
-  ``device_programs.cu`` (K4-K7), each into its own ``lib<name>.so`` with
-  a plain C interface, loaded with ctypes (seconds to build;
-  :func:`build_kernels` starts them all together);
+  ``gemm_bf16.cu`` (K1, K2), ``loss_update.cu`` (K8a, K8b, K9),
+  ``ring_fold.cu`` (K3) and ``device_programs.cu`` (K4-K7), each into its
+  own ``lib<name>.so`` with a plain C interface, loaded with ctypes
+  (seconds to build; :func:`build_kernels` starts them all together);
 - the device runtime's CUDA backend: ``nvcc`` -> ``libcuda_backend.so``
   (``cuda_backend.cu``), linked to ``libdevice_programs.so``;
 - the two bridges to the C++ core, ``g++`` against its ``libtbus.so`` with
@@ -251,6 +251,16 @@ def gemm_lib() -> ctypes.CDLL:
                               _LL, _I, _VP], _I)])
 
 
+def loss_update_lib() -> ctypes.CDLL:
+    """The fan-out step's loss, its gradient and the update: K8a, K8b, K9
+    (csrc/loss_update.cu)."""
+    return _cuda_lib("loss_update", [
+        ("tbus_sumsq_blocks", [_LL], _LL),
+        ("tbus_sumsq", [_VP, _VP, _VP, _LL, _VP], _I),
+        ("tbus_sumsq_grad", [_VP, _VP, _VP, _LL, _VP], _I),
+        ("tbus_sgd_update", [_VP, _VP, _VP, _F, _LL, _VP], _I)])
+
+
 def ring_fold_lib() -> ctypes.CDLL:
     """Ring attention's fold, K3 (csrc/ring_fold.cu)."""
     return _cuda_lib("ring_fold", [
@@ -294,7 +304,8 @@ def cuda_backend() -> str:
 def build_kernels() -> None:
     """Builds every kernel library at once, one nvcc per source (the
     device runtime's backend right after its kernels)."""
-    libs = (row_transform_lib, gemm_lib, ring_fold_lib, cuda_backend)
+    libs = (row_transform_lib, gemm_lib, loss_update_lib, ring_fold_lib,
+            cuda_backend)
     errors: List[BaseException] = []
 
     def run(fn: Callable[[], ctypes.CDLL]) -> None:

@@ -13,8 +13,8 @@ group of a mesh axis where the reference takes the axis name.
 Like the reference, every primitive returns a new tensor and leaves its
 input as it is. :func:`make_fanout_step` and :func:`ring_attention` are
 the device programs of the graft entry's path; their compute runs through
-the kernels K1, K2 (tbus_torch.kernels.gemm) and K3
-(tbus_torch.kernels.ring_fold).
+the kernels K1, K2 (tbus_torch.kernels.gemm), K8a, K8b, K9
+(tbus_torch.kernels.loss_update) and K3 (tbus_torch.kernels.ring_fold).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from tbus_torch.kernels.gemm import BF16Matmul
+from tbus_torch.kernels.loss_update import SumSquares, sgd_update
 from tbus_torch.kernels.ring_fold import fold_
 
 # (k, v) rotations made by ring_attention in this process: n - 1 per call.
@@ -176,9 +177,10 @@ def make_fanout_step(mesh: DeviceMesh, dp_axis: str = "dp",
       2. the service handler, bf16 x bf16 -> f32 (K1);
       3. all_reduce merge of the partial responses over tp;
       4. one ring hop over dp;
-      5. loss = sum of squares, summed over dp;
+      5. loss = sum of squares (K8a, its gradient K8b), summed over dp;
       6. dW per rank (K2, rounded to bf16 as the reference rounds it), then
-         summed over dp in f32, and w1 = w - 1e-3 * g.
+         summed over dp in f32, and w1 = w - 1e-3 * g rounded once, as
+         the reference's fused multiply-subtract (K9).
 
     The gradient is that of the global loss, as in the reference: neither
     the loss's dp sum nor the tp merge scales it."""
@@ -193,12 +195,12 @@ def make_fanout_step(mesh: DeviceMesh, dp_axis: str = "dp",
             y = BF16Matmul.apply(xs, w)
             y = _AllReduce.apply(y, tp)
             y = _RingCascade.apply(y, dp, 1)
-            loss = _AllReduce.apply(torch.sum(y * y), dp)
+            loss = _AllReduce.apply(SumSquares.apply(y), dp)
             (g,) = torch.autograd.grad(loss, (w,))
         # w is replicated over dp: its gradient is the dp sum of each
         # rank's bf16-rounded dW, taken in f32.
         g = replicated_fanout_merge(g, dp)
-        return loss.detach(), (w - 1e-3 * g).detach()
+        return loss.detach(), sgd_update(w.detach(), g, 1e-3)
 
     return step
 

@@ -64,7 +64,8 @@ _EXPECTED = [
     "tests/test_torch_entry_cuda.py", "tbus_torch/kernels/device_programs.py",
     "tbus_torch/rpc.py", "tbus_torch/_native.py",
     "tests/test_torch_device_cuda.py", "tbus_torch/kernels/fanout.py",
-    "tests/test_torch_fanout_cuda.py",
+    "tests/test_torch_fanout_cuda.py", "tbus_torch/kernels/loss_update.py",
+    "tests/test_torch_loss_update_cuda.py",
 ]
 
 
