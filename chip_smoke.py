@@ -69,11 +69,12 @@ GEMM's tile edges and at long K, timed beside their bounds and cuBLAS
 and K2 in parts (pack and GEMM, from the profiler), both packs bit-equal
 to their plain versions; then K8a, K8b and K9 against their plain
 versions at the entry's y [4, 16] and w [16, 16], at 1000 x 37, at a view
-one float into a buffer and at 4096 x 4096 (K8a to rtol 1e-5 and equal
-between two calls, K8b and K9 bit for bit), timed beside their bounds,
-their plain versions and torch.dot, torch.mul and torch.sub; (viii) K3
-against its plain version over 4 carried folds at 8192 x 8192 x 128 (32K
-context on a 4-position ring),
+one float into a buffer and at 4096 x 4096 (K8a to rtol 1e-5, bit-equal
+across three calls, its ticket counter back at 0; K8b and K9 bit for
+bit; no spills), timed beside their bounds, their plain versions and
+torch.dot, torch.mul and torch.sub, with each call's host enqueue time;
+(viii) K3 against its plain version over 4 carried folds at 8192 x 8192
+x 128 (32K context on a 4-position ring),
 in f32 and bf16, with the fused last fold (o / l in q's dtype), timed
 beside its bound (the split-term design's bf16 passes, the f32 FMA
 figure beside) and scaled_dot_product_attention, in parts (pack, fold,
@@ -799,11 +800,32 @@ def _loss_tensor(torch, rng, case, scale=1.0):
                             * np.float32(scale)).cuda()
 
 
+def _enqueue_us(torch, fn, n, warmup=3):
+    """Host µs per fn() call over n back-to-back calls with no
+    synchronise: what the host takes to enqueue a call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n / 1e3
+
+
 def phase_loss_update(torch, dev):
     phase("kernels K8a, K8b, K9: the step's loss, its gradient and the "
           "update against plain versions")
-    from tbus_torch.kernels import loss_update as lu
+    from tbus_torch.kernels import _build, loss_update as lu
 
+    _build.loss_update_lib()
+    usage = {k: v for k, v in _build.ptxas_usage("loss_update").items()
+             if "sumsq" in k or "sgd" in k}
+    say(f"loss_update kernels, ptxas: {json.dumps(usage)}")
+    if len(usage) < 3 or any(u.get("spill_stores", 1) or
+                             u.get("spill_loads", 1) for u in usage.values()):
+        raise AssertionError(f"a loss_update kernel spills: {usage}")
     rng = np.random.default_rng(SEED + 13)
     out = {"sumsq": {}, "sumsq_grad": {}, "sgd_update": {}}
     for case in LOSS_CASES:
@@ -811,35 +833,37 @@ def phase_loss_update(torch, dev):
         w = _loss_tensor(torch, rng, case, 0.02)
         g = _loss_tensor(torch, rng, case, 37.0)
         gb = torch.tensor(0.37, device="cuda")
-        s1, s2 = lu.sumsq(y), lu.sumsq(y)
+        n = y.numel()
+        s1, s2, s3 = lu.sumsq(y), lu.sumsq(y), lu.sumsq(y)
         sp = lu.sumsq_reference(y)
         dy, dyp = lu.sumsq_grad(y, gb), lu.sumsq_grad_reference(y, gb)
         w1, w1p = lu.sgd_update(w, g, 1e-3), lu.sgd_update_reference(w, g,
                                                                       1e-3)
         torch.cuda.synchronize()
         k8a_err = float((s1 - sp).abs())
-        k8a_ok = (k8a_err <= 1e-5 * float(sp.abs())
-                  and torch.equal(s1.view(torch.int32), s2.view(torch.int32)))
+        same = all(torch.equal(s1.view(torch.int32), t.view(torch.int32))
+                   for t in (s2, s3))
+        counter = int(lu._scratch_for(
+            y.get_device(), torch.cuda.current_stream().cuda_stream)[0])
+        k8a_ok = k8a_err <= 1e-5 * float(sp.abs()) and same and counter == 0
         k8b_ok = torch.equal(dy.view(torch.int32), dyp.view(torch.int32))
         k9_ok = torch.equal(w1.view(torch.int32), w1p.view(torch.int32))
         say(f"K8a, K8b, K9 at {case}: K8a {float(s1)} vs plain {float(sp)} "
-            f"(|k-p| {k8a_err:.3g}, rtol 1e-5; two calls bit-equal "
-            f"{torch.equal(s1, s2)}), K8b bit-equal {k8b_ok}, K9 bit-equal "
-            f"{k9_ok}")
+            f"(|k-p| {k8a_err:.3g}, rtol 1e-5; three calls bit-equal "
+            f"{same}; ticket counter back at {counter}), K8b bit-equal "
+            f"{k8b_ok}, K9 bit-equal {k9_ok}")
         if not (k8a_ok and k8b_ok and k9_ok):
             raise AssertionError(f"loss/update kernels at {case}: K8a ok "
                                  f"{k8a_ok}, K8b {k8b_ok}, K9 {k9_ok}")
         if case not in LOSS_TIMED:
             continue
-        n = y.numel()
         iters = 20 if n > 1e6 else 200
         g2 = 2 * gb
         yv = y.view(-1)
         for name, kern, plain, lib, nbytes, err, kname in (
                 ("sumsq", lambda: lu.sumsq(y), lambda: lu.sumsq_reference(y),
                  lambda: torch.dot(yv, yv), 4 * n + 4, k8a_err,
-                 {"pass1_ms": "sumsq_kernel",
-                  "finish_ms": "sumsq_finish_kernel"}),
+                 {"device_ms": "sumsq_kernel"}),
                 ("sumsq_grad", lambda: lu.sumsq_grad(y, gb),
                  lambda: lu.sumsq_grad_reference(y, gb),
                  lambda: torch.mul(y, g2), 8 * n + 4, 0.0,
@@ -857,10 +881,11 @@ def phase_loss_update(torch, dev):
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": max(op_ms, bytes_ms),
                 "bound_by": "operations" if op_ms > bytes_ms else "bytes",
-                "max_abs_err": err}
+                "max_abs_err": err,
+                "enqueue_us": _enqueue_us(torch, kern, iters),
+                "library_enqueue_us": _enqueue_us(torch, lib, iters)}
             if n > 1e6:  # on the card's own clock, no host launch cost
                 rec.update(_device_parts(torch, kern, iters, kname))
-                rec["device_ms"] = sum(rec[k] for k in kname)
                 rec["library_device_ms"] = _device_call_ms(torch, lib, iters)
         for name, lib in (("sumsq", "torch.dot"),
                           ("sumsq_grad", "torch.mul by 2 gbar"),
@@ -870,17 +895,17 @@ def phase_loss_update(torch, dev):
             say(f"{name} {case}: {r['ms'] * 1e3:.2f} us (CUDA events, "
                 f"{iters} back to back) vs bound {r['bound_ms'] * 1e3:.2f} "
                 f"us ({r['bound_by']}) = "
-                f"{r['bound_ms'] / r['ms'] * 100:.1f}%; plain "
+                f"{r['bound_ms'] / r['ms'] * 100:.1f}%; host enqueue "
+                f"{r['enqueue_us']:.2f} us a call; plain "
                 f"{r['plain_ms'] * 1e3:.2f} us; {lib} "
-                f"{r['library_ms'] * 1e3:.2f} us"
+                f"{r['library_ms'] * 1e3:.2f} us (enqueue "
+                f"{r['library_enqueue_us']:.2f} us)"
                 + (f"; on the device's clock (profiler): kernel "
                    f"{r['device_ms'] * 1e3:.2f} us = "
                    f"{r['bound_ms'] / r['device_ms'] * 100:.1f}% of the "
                    f"bound, library {r['library_device_ms'] * 1e3:.2f} us"
                    if "device_ms" in r else "")
-                + (f" (first pass {r['pass1_ms'] * 1e3:.2f} us, finish "
-                   f"{r['finish_ms'] * 1e3:.2f} us)" if "pass1_ms" in r
-                   else "") + f" [{dev['smi']}]")
+                + f" [{dev['smi']}]")
     return out
 
 

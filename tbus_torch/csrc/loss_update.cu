@@ -4,8 +4,8 @@
 // tbus/parallel/collective.py:186 make_fanout_step (K1 and K2, the step's
 // products, are in gemm_bf16.cu):
 //
-//   K8a sumsq_kernel (+ sumsq_finish_kernel): the loss jnp.sum(y * y)
-//       (:194), an f32 scalar over y f32 [R, N/tp];
+//   K8a sumsq_kernel: the loss jnp.sum(y * y) (:194), an f32 scalar over
+//       y f32 [R, N/tp], in one launch;
 //   K8b sumsq_grad_kernel: its gradient under value_and_grad (:206),
 //       dy = 2 * (gbar * y), the cotangent gbar read from device memory so
 //       that the step never waits on the host;
@@ -26,11 +26,32 @@
 // stores where every pointer of the call sits at the same offset modulo
 // 16 bytes: a scalar head up to the first 16-byte boundary, the float4
 // body, a scalar tail. Pointers at different offsets take scalar accesses
-// throughout. K8a is deterministic: a fixed grid (a function of n only)
-// of per-thread f32 sums, reduced by a warp-shuffle tree into one partial
-// a block; a second launch of one block sums the partials in index order.
-// No float atomics, so the same y gives the same bits on every call. A y
-// that takes one block has its sum written by the first launch alone.
+// throughout.
+//
+// K8a is one launch and deterministic. A fixed grid (a function of n
+// only) takes per-thread f32 sums, reduced by a warp-shuffle tree into
+// one partial a block. The cross-block sum is a ticket: each block writes
+// its partial to a scratch array and draws a ticket from an integer
+// counter (atomicInc's wrap, with release and acquire order); the block
+// that draws the last ticket sums the partials in index order (the order
+// does not depend on which block came last), and the wrap leaves the
+// counter at 0 for the next call, so no memset runs per call. A ticket
+// rather than a cooperative grid sync: it needs no cooperative launch
+// (whose grid must fit co-resident, and which has a launch path of its
+// own), and no block waits for another; only the last block does a
+// second, 1,056-float pass. No float atomics, so the same y gives the
+// same bits on every call. A y that takes one block has its sum written
+// by that block directly. The scratch (counter, then partials) belongs to
+// one stream at a time: two launches that run at once must not share it.
+//
+// K8a's loads are streaming loads that skip L1
+// (ld.global.nc.L1::no_allocate), four at a time into four independent
+// accumulators, so that more 16-byte loads are in flight per thread; on
+// the H100 they measured faster than an __ldg float4 loop with one
+// accumulator (PERF.md). The grid walks y from its end to its start: in
+// the step, y is written front to back just before K8a, so its end is
+// the part most likely still in L2 (PERF.md: 21.2-21.5 us in the step
+// against 23.6-24.5 for the same loads walking forward).
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
@@ -100,40 +121,101 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-// K8a, first pass: block b writes the sum of squares of its threads'
-// share (a grid-stride walk over the split) to dst[b].
-__global__ void __launch_bounds__(kThreads)
-sumsq_kernel(const float* __restrict__ y, float* __restrict__ dst, Split s) {
+// A 16-byte load through the non-coherent path that leaves L1 alone (y
+// is read once).
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// atomicInc(counter, last) with release and acquire order at GPU scope:
+// this thread's earlier writes (its block's partial) are visible before
+// its ticket, and every write released with an earlier ticket is visible
+// after it. It takes the place of a __threadfence() on either side.
+__device__ __forceinline__ unsigned draw_ticket(unsigned* counter,
+                                                unsigned last) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(counter), "r"(last)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ float sq4(float4 a, float acc) {
+  acc = fmaf(a.x, a.x, acc);
+  acc = fmaf(a.y, a.y, acc);
+  acc = fmaf(a.z, a.z, acc);
+  return fmaf(a.w, a.w, acc);
+}
+
+// K8a: *out = the sum of y[i]^2 over the split, in one launch. Block b
+// sums its threads' share (a grid-stride walk over the body from its last
+// vector down, then the head and the tail) into partials[b]; the block
+// that draws the last ticket from *counter sums the partials in index
+// order. *counter is 0 on entry and is left at 0.
+__global__ void __launch_bounds__(kThreads, 8)
+sumsq_kernel(const float* __restrict__ y, unsigned* __restrict__ counter,
+             float* __restrict__ partials, float* __restrict__ out, Split s) {
   const long long stride = (long long)gridDim.x * kThreads;
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const float4* v = reinterpret_cast<const float4*>(y + s.head);
-  float acc = 0.0f;
-#pragma unroll 4
-  for (long long i = t; i < s.nvec; i += stride) {
-    const float4 a = __ldg(v + i);
-    acc = fmaf(a.x, a.x, acc);
-    acc = fmaf(a.y, a.y, acc);
-    acc = fmaf(a.z, a.z, acc);
-    acc = fmaf(a.w, a.w, acc);
+  // Vector i of the walk is body vector nvec - 1 - i.
+  const float4* back =
+      reinterpret_cast<const float4*>(y + s.head) + (s.nvec - 1);
+  // Four loads in flight a thread, each into its own accumulator, and no
+  // one-load remainder loop: a load past the end is skipped and adds 0
+  // (at 4096^2 a thread has 15 or 16 vectors).
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  for (long long i = t; i < s.nvec; i += 4 * stride) {
+    const float4 x0 = ld_stream(back - i);
+    const float4 x1 =
+        i + stride < s.nvec ? ld_stream(back - (i + stride)) : zero;
+    const float4 x2 =
+        i + 2 * stride < s.nvec ? ld_stream(back - (i + 2 * stride)) : zero;
+    const float4 x3 =
+        i + 3 * stride < s.nvec ? ld_stream(back - (i + 3 * stride)) : zero;
+    acc = sq4(x0, acc);
+    a1 = sq4(x1, a1);
+    a2 = sq4(x2, a2);
+    a3 = sq4(x3, a3);
   }
+  acc = (acc + a1) + (a2 + a3);
   for (long long i = t; i < s.head; i += stride) acc = fmaf(y[i], y[i], acc);
   for (long long i = t; i < s.ntail; i += stride) {
     const float a = y[s.tail0 + i];
     acc = fmaf(a, a, acc);
   }
   acc = block_sum(acc);
-  if (threadIdx.x == 0) dst[blockIdx.x] = acc;
-}
-
-// K8a, second pass: one block sums the first pass's partials in index
-// order into *out.
-__global__ void __launch_bounds__(kThreads)
-sumsq_finish_kernel(const float* __restrict__ partials,
-                    float* __restrict__ out, int count) {
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < count; i += kThreads) acc += partials[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc;
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0) *out = acc;
+    return;
+  }
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    last = draw_ticket(counter, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();  // the other partials are visible to the whole block
+  if (!last) return;
+  // Thread i sums partials i, i + 256, ... in that order; the loads are
+  // issued together (from L2, where the other blocks wrote), a missing one
+  // adds 0.
+  constexpr int kEach = int((kMaxBlocks + kThreads - 1) / kThreads);
+  float p[kEach];
+#pragma unroll
+  for (int k = 0; k < kEach; ++k) {
+    const unsigned i = threadIdx.x + k * kThreads;
+    p[k] = i < gridDim.x ? __ldcg(partials + i) : 0.0f;
+  }
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kEach; ++k) sum += p[k];
+  sum = block_sum(sum);
+  if (threadIdx.x == 0) *out = sum;
 }
 
 __device__ __forceinline__ float grad1(float gb, float y) {
@@ -176,33 +258,30 @@ sgd_update_kernel(const float* __restrict__ w, const float* __restrict__ g,
 
 }  // namespace
 
-// The first pass's grid for n floats: the partials scratch takes this many
-// floats.
+// K8a's grid for n floats: the scratch takes one counter word and one
+// partial a block.
 extern "C" long long tbus_sumsq_blocks(long long n) {
   long long b = cdiv(n, kThreads * kPerThread);
   if (b < 1) b = 1;
   return b < kMaxBlocks ? b : kMaxBlocks;
 }
 
-extern "C" int tbus_sumsq(const void* y, void* out, void* partials,
+// The words of K8a's scratch, whatever n: the ticket counter, then room
+// for the partials of the largest grid.
+extern "C" long long tbus_sumsq_scratch_words() { return 1 + kMaxBlocks; }
+
+// scratch: tbus_sumsq_scratch_words() words, zeroed before its first
+// call; word 0, the ticket counter, is 0 again after every call.
+extern "C" int tbus_sumsq(const void* y, void* out, void* scratch,
                           long long n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0) {
-    cudaMemsetAsync(out, 0, sizeof(float), st);
-    return int(cudaGetLastError());
-  }
-  const long long blocks = tbus_sumsq_blocks(n);
+  if (n <= 0) return int(cudaErrorInvalidValue);
   const void* ptrs[] = {y};
-  const Split s = split(n, ptrs, 1);
-  float* dst = blocks == 1 ? static_cast<float*>(out)
-                           : static_cast<float*>(partials);
-  sumsq_kernel<<<unsigned(blocks), kThreads, 0, st>>>(
-      static_cast<const float*>(y), dst, s);
-  if (blocks > 1) {
-    sumsq_finish_kernel<<<1, kThreads, 0, st>>>(
-        static_cast<const float*>(partials), static_cast<float*>(out),
-        int(blocks));
-  }
+  unsigned* counter = static_cast<unsigned*>(scratch);
+  sumsq_kernel<<<unsigned(tbus_sumsq_blocks(n)), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), counter,
+      reinterpret_cast<float*>(counter + 1), static_cast<float*>(out),
+      split(n, ptrs, 1));
   return int(cudaGetLastError());
 }
 

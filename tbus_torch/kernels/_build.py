@@ -256,6 +256,7 @@ def loss_update_lib() -> ctypes.CDLL:
     (csrc/loss_update.cu)."""
     return _cuda_lib("loss_update", [
         ("tbus_sumsq_blocks", [_LL], _LL),
+        ("tbus_sumsq_scratch_words", [], _LL),
         ("tbus_sumsq", [_VP, _VP, _VP, _LL, _VP], _I),
         ("tbus_sumsq_grad", [_VP, _VP, _VP, _LL, _VP], _I),
         ("tbus_sgd_update", [_VP, _VP, _VP, _F, _LL, _VP], _I)])

@@ -5,11 +5,13 @@ They replace the rest of the device compute of
 tbus/parallel/collective.py:186 make_fanout_step:
 
 - :func:`sumsq` (K8a), the loss ``jnp.sum(y * y)`` (:194): an f32 scalar,
-  the sum of squares of y f32 [R, N/tp]. On the card a fixed grid takes
-  per-thread f32 sums reduced by warp shuffles into one partial a block,
-  and one more block sums the partials in index order, so the same y
-  gives the same bits on every call (no float atomics). A y that fits one
-  block's share takes the first launch alone;
+  the sum of squares of y f32 [R, N/tp]. On the card it is one launch: a
+  fixed grid takes per-thread f32 sums reduced by warp shuffles into one
+  partial a block, and the block that draws the last ticket from an
+  integer counter sums the partials in index order, so the same y gives
+  the same bits on every call (no float atomics). The partials and the
+  counter live in a scratch buffer kept per device and stream
+  (:func:`_scratch_for`);
 - :func:`sumsq_grad` (K8b), its gradient under value_and_grad (:206):
   ``dy = 2 * (gbar * y)`` with the cotangent gbar, a 0-dim f32 tensor read
   from device memory (the step never syncs with the host). The product is
@@ -21,7 +23,10 @@ tbus/parallel/collective.py:186 make_fanout_step:
 
 :class:`SumSquares` pairs K8a and K8b as an autograd Function. The plain
 versions serve tensors on the CPU; on a CUDA tensor a wrapper launches its
-kernel or raises.
+kernel or raises. A launch makes one ctypes call: the library's functions
+are held here after the first load, the current device is switched only
+when the tensor lies on another one, and K8a's scratch is kept between
+calls, so that after warm-up a ``sumsq`` call allocates only its output.
 """
 
 from __future__ import annotations
@@ -40,14 +45,15 @@ _F32_OVERFLOW = 2.0**128  # where f32 rounding of a finite value gives inf
 
 
 def _check(name: str, *ts: torch.Tensor) -> None:
+    device = ts[0].device
     for t in ts:
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: operands must be f32, got {t.dtype}")
-    if len({t.device for t in ts}) != 1:
-        raise ValueError(f"{name}: operands on "
-                         f"{', '.join(str(t.device) for t in ts)}")
-    if ts[0].device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {ts[0].device}")
+        if t.device != device:
+            raise ValueError(f"{name}: operands on "
+                             f"{', '.join(str(t.device) for t in ts)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
 
 
 def _check_pair(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -110,14 +116,45 @@ def sgd_update_reference(w: torch.Tensor, g: torch.Tensor,
                                    f))
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+# The library's entry points and the words of K8a's scratch, set by
+# _load() at first use, so that a launch runs no import and builds no
+# signature list.
+_sumsq = _sumsq_grad = _sgd_update = None
+_scratch_words = 0
 
 
-def _lib():
+def _load() -> None:
+    global _sumsq, _sumsq_grad, _sgd_update, _scratch_words
     from tbus_torch.kernels import _build
 
-    return _build.loss_update_lib()
+    lib = _build.loss_update_lib()
+    _scratch_words = lib.tbus_sumsq_scratch_words()
+    _sumsq, _sumsq_grad, _sgd_update = (
+        lib.tbus_sumsq, lib.tbus_sumsq_grad, lib.tbus_sgd_update)
+
+
+def _stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on device `index`
+    (torch.accelerator's stream object is built in C++: ~0.5-1 µs on the
+    H100's host, where torch.cuda.current_stream takes 3-9 µs)."""
+    return torch.accelerator.current_stream(index).native_handle
+
+
+# K8a's scratch, one zeroed int32 buffer of _scratch_words per (device,
+# stream): word 0 the ticket counter, which the kernel leaves at 0, then
+# one partial per block of the largest grid (~4 KiB). Keyed by stream
+# too, so that launches running at once on two streams never share a
+# counter; a buffer serves its stream's launches in their order. No lock:
+# threads racing on one key can at worst each make a buffer, all zeroed.
+_scratch = {}
+
+
+def _scratch_for(device, stream: int) -> torch.Tensor:
+    buf = _scratch.get((device, stream))
+    if buf is None:
+        buf = _scratch[(device, stream)] = torch.zeros(
+            _scratch_words, dtype=torch.int32, device=device)
+    return buf
 
 
 def _raise(name: str, err: int) -> None:
@@ -126,25 +163,29 @@ def _raise(name: str, err: int) -> None:
 
 
 def sumsq(y: torch.Tensor) -> torch.Tensor:
-    """0-dim f32 sum of y * y. Launches K8a (one or two launches, counted
-    once) for a CUDA tensor; the plain version serves only the CPU. An
-    empty y gives 0 with no launch."""
+    """0-dim f32 sum of y * y. Launches K8a once for a CUDA tensor; the
+    plain version serves only the CPU. An empty y gives 0 with no
+    launch."""
     global sumsq_launches
     if y.device.type == "cpu":
         return sumsq_reference(y)
     _check("sumsq", y)
-    lib = _lib()
-    y = y.contiguous()
-    out = torch.empty((), dtype=torch.float32, device=y.device)
+    index = y.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return sumsq(y)
+    if not y.is_contiguous():
+        y = y.contiguous()
     n = y.numel()
     if n == 0:
-        return out.zero_()
-    blocks = lib.tbus_sumsq_blocks(n)
-    partials = torch.empty((blocks,), dtype=torch.float32, device=y.device)
-    with torch.cuda.device(y.device):
-        err = lib.tbus_sumsq(y.data_ptr(), out.data_ptr(),
-                             partials.data_ptr(), n, _stream(y))
-    _raise("sumsq", err)
+        return y.new_zeros(())
+    if _sumsq is None:
+        _load()
+    stream = _stream(index)
+    out = y.new_empty(())
+    _raise("sumsq", _sumsq(y.data_ptr(), out.data_ptr(),
+                           _scratch_for(index, stream).data_ptr(), n,
+                           stream))
     sumsq_launches += 1
     return out
 
@@ -157,15 +198,20 @@ def sumsq_grad(y: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
     if y.device.type == "cpu":
         return sumsq_grad_reference(y, gbar)
     _check_grad(y, gbar)
-    lib = _lib()
-    y, gbar = y.contiguous(), gbar.contiguous()
+    index = y.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return sumsq_grad(y, gbar)
+    if not y.is_contiguous():
+        y = y.contiguous()
     dy = torch.empty_like(y)
-    if y.numel() == 0:
+    n = y.numel()
+    if n == 0:
         return dy
-    with torch.cuda.device(y.device):
-        err = lib.tbus_sumsq_grad(y.data_ptr(), gbar.data_ptr(),
-                                  dy.data_ptr(), y.numel(), _stream(y))
-    _raise("sumsq_grad", err)
+    if _sumsq_grad is None:
+        _load()
+    _raise("sumsq_grad", _sumsq_grad(y.data_ptr(), gbar.data_ptr(),
+                                     dy.data_ptr(), n, _stream(index)))
     sumsq_grad_launches += 1
     return dy
 
@@ -178,15 +224,22 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     if w.device.type == "cpu":
         return sgd_update_reference(w, g, lr)
     _check_pair("sgd_update", w, g)
-    lib = _lib()
-    w, g = w.contiguous(), g.contiguous()
+    index = w.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return sgd_update(w, g, lr)
+    if not w.is_contiguous():
+        w = w.contiguous()
+    if not g.is_contiguous():
+        g = g.contiguous()
     w1 = torch.empty_like(w)
-    if w.numel() == 0:
+    n = w.numel()
+    if n == 0:
         return w1
-    with torch.cuda.device(w.device):
-        err = lib.tbus_sgd_update(w.data_ptr(), g.data_ptr(), w1.data_ptr(),
-                                  lr, w.numel(), _stream(w))
-    _raise("sgd_update", err)
+    if _sgd_update is None:
+        _load()
+    _raise("sgd_update", _sgd_update(w.data_ptr(), g.data_ptr(),
+                                     w1.data_ptr(), lr, n, _stream(index)))
     sgd_update_launches += 1
     return w1
 

@@ -227,3 +227,60 @@ def test_step_routes_its_loss_and_update_through_loss_update(monkeypatch):
         distributed.shutdown()
     assert sorted(calls) == ["sgd_update_reference", "sumsq_grad_reference",
                              "sumsq_reference"]
+
+
+def test_scratch_is_kept_per_device_and_stream(monkeypatch):
+    monkeypatch.setattr(lu, "_scratch", {})
+    monkeypatch.setattr(lu, "_scratch_words", 1057)
+    a = lu._scratch_for("cpu", 1)
+    b = lu._scratch_for("cpu", 2)
+    c = lu._scratch_for("meta", 1)
+    assert len({id(a), id(b), id(c)}) == 3
+    assert a.device.type == "cpu" and c.device.type == "meta"
+    for buf in (a, b, c):  # the counter, then room for 1,056 partials
+        assert buf.dtype == torch.int32 and buf.shape == (1057,)
+    assert not a.any() and not b.any()
+    assert lu._scratch_for("cpu", 1) is a
+    assert lu._scratch_for("cpu", 2) is b
+    assert len(lu._scratch) == 3
+
+
+@pytest.mark.parametrize("shape", [(4, 16), (16, 16), (1000, 37), (0, 16)],
+                         ids=str)
+def test_plain_path_makes_no_scratch_and_no_launch(monkeypatch, shape):
+    """A CPU tensor takes the plain version: no scratch, no library, no
+    launch counted."""
+    monkeypatch.setattr(lu, "_scratch", {})
+    monkeypatch.setattr(lu, "_load", lambda: pytest.fail("library loaded"))
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape, dtype=np.float32))
+    before = lu.sumsq_launches
+    assert torch.equal(lu.sumsq(y), lu.sumsq_reference(y))
+    assert lu._scratch == {} and lu.sumsq_launches == before
+
+
+def test_launch_path_holds_the_library_functions(monkeypatch):
+    """_load() keeps the library's entry points at module level, so that a
+    launch reads them without an import or a signature list."""
+    from tbus_torch.kernels import _build
+
+    class Lib:
+        tbus_sumsq = object()
+        tbus_sumsq_grad = object()
+        tbus_sgd_update = object()
+
+        @staticmethod
+        def tbus_sumsq_scratch_words():
+            return 1057
+
+    loads = []
+    monkeypatch.setattr(_build, "loss_update_lib",
+                        lambda: (loads.append(1), Lib)[1])
+    for name in ("_sumsq", "_sumsq_grad", "_sgd_update"):
+        monkeypatch.setattr(lu, name, None)
+    monkeypatch.setattr(lu, "_scratch_words", 0)
+    lu._load()
+    assert loads == [1]
+    assert (lu._sumsq, lu._sumsq_grad, lu._sgd_update) == (
+        Lib.tbus_sumsq, Lib.tbus_sumsq_grad, Lib.tbus_sgd_update)
+    assert lu._scratch_words == 1057

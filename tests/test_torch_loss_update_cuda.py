@@ -7,8 +7,10 @@ This file imports no JAX; run it on the card without tests/conftest.py:
     python -m pytest -m cuda --noconftest tests/test_torch_loss_update_cuda.py
 
 Tolerances. K8a: rtol 1e-5 against torch's sum on the card (f32 sums of
-up to 16.7 M terms in another order), and bit-equal between two calls on
-the same y (a fixed grid, no float atomics). K8b and K9: bit-equal; both
+up to 16.7 M terms in another order), and bit-equal between calls on the
+same y, on one stream or on two at once (a fixed grid, the partials
+summed in index order by whichever block finishes last, no float
+atomics). K8b and K9: bit-equal; both
 sides round the same products once (K8b gbar * y, then an exact doubling;
 K9 one fused multiply-subtract, its plain version an exact f64 emulation).
 """
@@ -16,6 +18,8 @@ K9 one fused multiply-subtract, its plain version an exact f64 emulation).
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from tbus_torch.kernels import _build, loss_update as lu
 
@@ -147,3 +151,117 @@ def test_sum_squares_backward_runs_k8b(card):
     assert (lu.sumsq_launches, lu.sumsq_grad_launches) == (
         before[0] + 1, before[1] + 1)
     assert torch.equal(_bits(y.grad), _bits(2 * y.detach()))
+
+
+def _sumsq_kernels(fn, calls):
+    """Device kernels a profiled run of `calls` fn() calls launched (name
+    -> count), after one unprofiled call. The profiler now and then
+    misses a run's launches, so a run that saw fewer than `calls` of the
+    sumsq kernel is profiled again, up to three runs."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if sum(c for k, c in seen.items() if "sumsq_kernel" in k) >= calls:
+            break
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_sumsq_is_one_kernel_launch(card, case):
+    """One kernel a call, at every size: no finishing kernel, no memset."""
+    y = _tensor(card, case, 8)
+    seen = _sumsq_kernels(lambda: lu.sumsq(y), 3)
+    assert len(seen) == 1, seen
+    ((name, count),) = seen.items()
+    assert "sumsq_kernel" in name and "finish" not in name
+    assert count == 3, seen
+
+
+# n whose grid spans one block, two, and the most the kernel takes.
+GRIDS = {"one": 4096, "two": 8192, "most": 4096 * 4096}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", GRIDS)
+def test_sumsq_is_bit_equal_across_calls_at_every_grid(card, grid):
+    n = GRIDS[grid]
+    blocks = _build.loss_update_lib().tbus_sumsq_blocks(n)
+    assert blocks == {"one": 1, "two": 2}.get(grid, 132 * 8)
+    y = _tensor(card, (n,), 10)
+    got = [lu.sumsq(y) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(got[0]), _bits(t)) for t in got[1:])
+    torch.testing.assert_close(got[0], lu.sumsq_reference(y), rtol=1e-5,
+                               atol=0)
+    buf = lu._scratch_for(y.get_device(),
+                          torch.cuda.current_stream().cuda_stream)
+    assert buf.numel() == 132 * 8 + 1
+    assert int(buf[0]) == 0  # the counter is back at 0
+
+
+@pytest.mark.cuda
+def test_sumsq_on_two_streams_at_once(card):
+    """Two streams run K8a at once on different y, each on its own
+    scratch; every result equals its y's one-stream result bit for bit."""
+    ys = [_tensor(card, (4096, 4096), 11), _tensor(card, (4096, 4096), 12)]
+    want = [lu.sumsq(y) for y in ys]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[k].append(lu.sumsq(ys[k]))
+    torch.cuda.synchronize()
+    assert not torch.equal(_bits(want[0]), _bits(want[1]))
+    for k in range(2):
+        assert all(torch.equal(_bits(t), _bits(want[k])) for t in got[k])
+    bufs = [lu._scratch_for(torch.cuda.current_device(), s.cuda_stream)
+            for s in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_sumsq_allocates_only_its_output(card, case):
+    y = _tensor(card, case, 13)
+    lu.sumsq(y)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = lu.sumsq(y)
+    after = torch.cuda.memory_stats()["allocation.all.allocated"]
+    assert after - before == 1 and out.shape == ()
+
+
+@pytest.mark.cuda
+def test_each_launch_is_one_ctypes_call(card, monkeypatch):
+    y = _tensor(card, (4, 16), 14)
+    gb = torch.tensor(0.37, device=card)
+    lu.sumsq(y), lu.sumsq_grad(y, gb), lu.sgd_update(y, y, 1e-3)  # warm-up
+    calls = []
+    for name in ("_sumsq", "_sumsq_grad", "_sgd_update"):
+        fn = getattr(lu, name)
+        monkeypatch.setattr(lu, name, lambda *a, _fn=fn, _name=name: (
+            calls.append(_name), _fn(*a))[1])
+    lu.sumsq(y), lu.sumsq_grad(y, gb), lu.sgd_update(y, y, 1e-3)
+    torch.cuda.synchronize()
+    assert calls == ["_sumsq", "_sumsq_grad", "_sgd_update"]
+
+
+@pytest.mark.cuda
+def test_launches_go_to_the_current_stream(card):
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert lu._stream(torch.cuda.current_device()) == s.cuda_stream
+    assert (lu._stream(torch.cuda.current_device())
+            == torch.cuda.current_stream().cuda_stream)
