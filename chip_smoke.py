@@ -800,18 +800,21 @@ def _loss_tensor(torch, rng, case, scale=1.0):
                             * np.float32(scale)).cuda()
 
 
-def _enqueue_us(torch, fn, n, warmup=3):
+def _enqueue_us(torch, fn, n, warmup=3, rounds=5):
     """Host µs per fn() call over n back-to-back calls with no
-    synchronise: what the host takes to enqueue a call."""
+    synchronise, the median of `rounds` such runs: what the host takes to
+    enqueue a call (the card's host swings between runs)."""
     for _ in range(warmup):
         fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter_ns() - t0) / n / 1e3)
     torch.cuda.synchronize()
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        fn()
-    t1 = time.perf_counter_ns()
-    torch.cuda.synchronize()
-    return (t1 - t0) / n / 1e3
+    return float(np.median(times))
 
 
 def phase_loss_update(torch, dev):
@@ -1180,9 +1183,21 @@ def phase_entry(torch, dev, tmp):
             say(f"{name}: wall p50 {wall:.0f} us (host clock, n={n}); "
                 f"profiled wall {per_call:.0f} us, device busy {busy:.0f} "
                 f"us = {busy / per_call * 100:.1f}% [{dev['smi']}]")
+        _step_loss(torch, dev, lambda: big_step(bw, bx))
     finally:
         distributed.shutdown()
     return counts
+
+
+def _step_loss(torch, dev, step):
+    """K8a and K8b inside the hidden-4096 step on the device's clock (K8a
+    walks y from its end, so what K8b finds in L2 depends on where it
+    starts; PERF.md §6)."""
+    t = _device_parts(torch, step, 3, {"k8a": "sumsq_kernel",
+                                       "k8b": "sumsq_grad_kernel"})
+    say(f"hidden {HIDDEN} step: K8a {t['k8a'] * 1e3:.1f} + K8b "
+        f"{t['k8b'] * 1e3:.1f} = {(t['k8a'] + t['k8b']) * 1e3:.1f} us on the "
+        f"device's clock [{dev['smi']}]")
 
 
 def phase_dryrun():

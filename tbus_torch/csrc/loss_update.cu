@@ -53,6 +53,15 @@
 // the part most likely still in L2 (PERF.md: 21.2-21.5 us in the step
 // against 23.6-24.5 for the same loads walking forward).
 //
+// K8b and K9 stream: each float is read once and written once, one thread
+// a 16-byte vector (__ldg), blocks handed out in order, so the loads in
+// flight stay inside a window that moves through the body. K8b's blocks
+// walk y from its end, as K8a's do: in the step K8b runs right after K8a,
+// whose last loads are y's start (PERF.md: K8a + K8b 0.6 us lower on
+// average in the hidden-4096 step than with K8b walking forward). A
+// one-wave grid-stride form and a form through 1-D TMA bulk copies were
+// both 2-4 us slower at 4096^2 on the H100 (PERF.md).
+//
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 
@@ -222,19 +231,21 @@ __device__ __forceinline__ float grad1(float gb, float y) {
   return 2.0f * __fmul_rn(gb, y);
 }
 
-// K8b: dy = 2 * (gbar * y).
+// K8b: dy = 2 * (gbar * y), thread t taking the body's t-th vector from
+// its end.
 __global__ void __launch_bounds__(kThreads)
 sumsq_grad_kernel(const float* __restrict__ y, const float* __restrict__ gbar,
                   float* __restrict__ dy, Split s) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const float gb = __ldg(gbar);
-  if (i < s.nvec) {
+  if (t < s.nvec) {
+    const long long i = s.nvec - 1 - t;
     const float4 a = __ldg(reinterpret_cast<const float4*>(y + s.head) + i);
     reinterpret_cast<float4*>(dy + s.head)[i] = make_float4(
         grad1(gb, a.x), grad1(gb, a.y), grad1(gb, a.z), grad1(gb, a.w));
   }
-  if (i < s.head) dy[i] = grad1(gb, y[i]);
-  if (i < s.ntail) dy[s.tail0 + i] = grad1(gb, y[s.tail0 + i]);
+  if (t < s.head) dy[t] = grad1(gb, y[t]);
+  if (t < s.ntail) dy[s.tail0 + t] = grad1(gb, y[s.tail0 + t]);
 }
 
 // K9: w1 = fma(-c, g, w), rounded once.

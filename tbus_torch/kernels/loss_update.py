@@ -26,7 +26,11 @@ versions serve tensors on the CPU; on a CUDA tensor a wrapper launches its
 kernel or raises. A launch makes one ctypes call: the library's functions
 are held here after the first load, the current device is switched only
 when the tensor lies on another one, and K8a's scratch is kept between
-calls, so that after warm-up a ``sumsq`` call allocates only its output.
+calls, so that after warm-up a call allocates only its output. K8b and
+K9 check their operands with a few attribute reads and raise through the
+full checks only where those reads refuse; ``SumSquares.backward``
+launches K8b without the checks that autograd and the forward already
+hold.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ sumsq_launches = 0
 sumsq_grad_launches = 0
 sgd_update_launches = 0
 
+_F32 = torch.float32
 _F32_OVERFLOW = 2.0**128  # where f32 rounding of a finite value gives inf
 
 
@@ -116,28 +121,30 @@ def sgd_update_reference(w: torch.Tensor, g: torch.Tensor,
                                    f))
 
 
-# The library's entry points and the words of K8a's scratch, set by
-# _load() at first use, so that a launch runs no import and builds no
-# signature list.
+# Set by _load() at first use, so that a launch runs no import and builds
+# no signature list: the library's entry points, the words of K8a's
+# scratch, and PyTorch's getters of the current CUDA device and of the
+# raw handle of a device's current stream. Those two are torch._C's own,
+# which PyTorch's compiled code calls (~0.2 µs each on the H100's host,
+# where torch.accelerator.current_stream() takes 1.1-2.4 µs; PERF.md §7);
+# a CPU build of torch lacks them, and the card tests check that the
+# installed build has them.
 _sumsq = _sumsq_grad = _sgd_update = None
+_device = _stream = None
 _scratch_words = 0
 
 
 def _load() -> None:
-    global _sumsq, _sumsq_grad, _sgd_update, _scratch_words
+    global _sumsq, _sumsq_grad, _sgd_update, _device, _stream
+    global _scratch_words
     from tbus_torch.kernels import _build
 
     lib = _build.loss_update_lib()
     _scratch_words = lib.tbus_sumsq_scratch_words()
+    _device = torch._C._cuda_getDevice
+    _stream = torch._C._cuda_getCurrentRawStream
     _sumsq, _sumsq_grad, _sgd_update = (
         lib.tbus_sumsq, lib.tbus_sumsq_grad, lib.tbus_sgd_update)
-
-
-def _stream(index: int) -> int:
-    """The raw handle of PyTorch's current stream on device `index`
-    (torch.accelerator's stream object is built in C++: ~0.5-1 µs on the
-    H100's host, where torch.cuda.current_stream takes 3-9 µs)."""
-    return torch.accelerator.current_stream(index).native_handle
 
 
 # K8a's scratch, one zeroed int32 buffer of _scratch_words per (device,
@@ -170,8 +177,10 @@ def sumsq(y: torch.Tensor) -> torch.Tensor:
     if y.device.type == "cpu":
         return sumsq_reference(y)
     _check("sumsq", y)
+    if _sumsq is None:
+        _load()
     index = y.get_device()
-    if index != torch.cuda.current_device():
+    if index != _device():
         with torch.cuda.device(index):
             return sumsq(y)
     if not y.is_contiguous():
@@ -179,8 +188,6 @@ def sumsq(y: torch.Tensor) -> torch.Tensor:
     n = y.numel()
     if n == 0:
         return y.new_zeros(())
-    if _sumsq is None:
-        _load()
     stream = _stream(index)
     out = y.new_empty(())
     _raise("sumsq", _sumsq(y.data_ptr(), out.data_ptr(),
@@ -194,25 +201,36 @@ def sumsq_grad(y: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
     """2 * (gbar * y) in f32, gbar a 0-dim f32 tensor on y's device.
     Launches K8b for CUDA tensors; the plain version serves only the
     CPU."""
-    global sumsq_grad_launches
+    if (y.is_cuda and y.dtype is _F32 and gbar.dtype is _F32
+            and not gbar.dim() and gbar.get_device() == y.get_device()):
+        return _sumsq_grad_cuda(y, gbar)
     if y.device.type == "cpu":
         return sumsq_grad_reference(y, gbar)
-    _check_grad(y, gbar)
+    _check_grad(y, gbar)  # raises on what the test above refused
+    return _sumsq_grad_cuda(y, gbar)
+
+
+def _sumsq_grad_cuda(y: torch.Tensor, gbar: torch.Tensor) -> torch.Tensor:
+    """K8b on CUDA operands that hold sumsq_grad's checks: y f32, gbar a
+    0-dim f32 tensor on y's device (as autograd hands SumSquares.backward
+    its cotangent)."""
+    global sumsq_grad_launches
+    if _sumsq_grad is None:
+        _load()
     index = y.get_device()
-    if index != torch.cuda.current_device():
+    if index != _device():
         with torch.cuda.device(index):
-            return sumsq_grad(y, gbar)
+            return _sumsq_grad_cuda(y, gbar)
     if not y.is_contiguous():
         y = y.contiguous()
     dy = torch.empty_like(y)
     n = y.numel()
-    if n == 0:
-        return dy
-    if _sumsq_grad is None:
-        _load()
-    _raise("sumsq_grad", _sumsq_grad(y.data_ptr(), gbar.data_ptr(),
-                                     dy.data_ptr(), n, _stream(index)))
-    sumsq_grad_launches += 1
+    if n:
+        err = _sumsq_grad(y.data_ptr(), gbar.data_ptr(), dy.data_ptr(), n,
+                          _stream(index))
+        if err:
+            _raise("sumsq_grad", err)
+        sumsq_grad_launches += 1
     return dy
 
 
@@ -221,11 +239,15 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     Launches K9 for CUDA tensors; the plain version serves only the
     CPU."""
     global sgd_update_launches
-    if w.device.type == "cpu":
-        return sgd_update_reference(w, g, lr)
-    _check_pair("sgd_update", w, g)
+    if not (w.is_cuda and w.dtype is _F32 and g.dtype is _F32
+            and g.get_device() == w.get_device() and w.shape == g.shape):
+        if w.device.type == "cpu":
+            return sgd_update_reference(w, g, lr)
+        _check_pair("sgd_update", w, g)  # raises on what was refused
+    if _sgd_update is None:
+        _load()
     index = w.get_device()
-    if index != torch.cuda.current_device():
+    if index != _device():
         with torch.cuda.device(index):
             return sgd_update(w, g, lr)
     if not w.is_contiguous():
@@ -234,13 +256,12 @@ def sgd_update(w: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
         g = g.contiguous()
     w1 = torch.empty_like(w)
     n = w.numel()
-    if n == 0:
-        return w1
-    if _sgd_update is None:
-        _load()
-    _raise("sgd_update", _sgd_update(w.data_ptr(), g.data_ptr(),
-                                     w1.data_ptr(), lr, n, _stream(index)))
-    sgd_update_launches += 1
+    if n:
+        err = _sgd_update(w.data_ptr(), g.data_ptr(), w1.data_ptr(), lr, n,
+                          _stream(index))
+        if err:
+            _raise("sgd_update", err)
+        sgd_update_launches += 1
     return w1
 
 
@@ -255,5 +276,10 @@ class SumSquares(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar: torch.Tensor) -> torch.Tensor:
+        # The forward checked y, and autograd hands back a 0-dim f32
+        # cotangent on y's device: on the card K8b launches without
+        # sumsq_grad's checks.
         (y,) = ctx.saved_tensors
+        if y.is_cuda:
+            return _sumsq_grad_cuda(y, gbar)
         return sumsq_grad(y, gbar)

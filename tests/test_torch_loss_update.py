@@ -260,8 +260,9 @@ def test_plain_path_makes_no_scratch_and_no_launch(monkeypatch, shape):
 
 
 def test_launch_path_holds_the_library_functions(monkeypatch):
-    """_load() keeps the library's entry points at module level, so that a
-    launch reads them without an import or a signature list."""
+    """_load() keeps the library's entry points, and PyTorch's getters of
+    the current device and stream, at module level, so that a launch
+    reads them without an import or a signature list."""
     from tbus_torch.kernels import _build
 
     class Lib:
@@ -273,14 +274,59 @@ def test_launch_path_holds_the_library_functions(monkeypatch):
         def tbus_sumsq_scratch_words():
             return 1057
 
+    def device():
+        return 0
+
+    def stream(index):
+        return 0
+
     loads = []
     monkeypatch.setattr(_build, "loss_update_lib",
                         lambda: (loads.append(1), Lib)[1])
-    for name in ("_sumsq", "_sumsq_grad", "_sgd_update"):
+    # PyTorch's CUDA getters, which a CPU build lacks.
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", device, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", stream,
+                        raising=False)
+    for name in ("_sumsq", "_sumsq_grad", "_sgd_update", "_device",
+                 "_stream"):
         monkeypatch.setattr(lu, name, None)
     monkeypatch.setattr(lu, "_scratch_words", 0)
     lu._load()
     assert loads == [1]
+    assert (lu._device, lu._stream) == (device, stream)
     assert (lu._sumsq, lu._sumsq_grad, lu._sgd_update) == (
         Lib.tbus_sumsq, Lib.tbus_sumsq_grad, Lib.tbus_sgd_update)
     assert lu._scratch_words == 1057
+
+
+@pytest.mark.parametrize("shape", [(4, 16), (16, 16), (1000, 37), (0, 16)],
+                         ids=str)
+def test_plain_grad_and_update_load_nothing_and_launch_nothing(monkeypatch,
+                                                               shape):
+    """CPU operands pass K8b's and K9's attribute checks to the plain
+    versions: no library, no launch counted, the plain bits."""
+    monkeypatch.setattr(lu, "_load", lambda: pytest.fail("library loaded"))
+    monkeypatch.setattr(lu, "_sumsq_grad_cuda",
+                        lambda *a: pytest.fail("the card's path ran"))
+    rng = np.random.default_rng(6)
+    y, g = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            for _ in range(2))
+    gb = torch.tensor(0.37)
+    before = (lu.sumsq_grad_launches, lu.sgd_update_launches)
+    assert torch.equal(lu.sumsq_grad(y, gb), lu.sumsq_grad_reference(y, gb))
+    assert torch.equal(lu.sgd_update(y, g, LR),
+                       lu.sgd_update_reference(y, g, LR))
+    assert (lu.sumsq_grad_launches, lu.sgd_update_launches) == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda: lu.sumsq_grad(torch.ones(2, device="meta"),
+                          torch.tensor(1.0, device="meta")),
+    lambda: lu.sgd_update(torch.ones(2, device="meta"),
+                          torch.ones(2, device="meta"), LR),
+], ids=["grad-meta", "update-meta"])
+def test_operands_off_cpu_and_card_are_refused(call):
+    """What K8b's and K9's attribute checks refuse off the CPU goes to
+    the full checks, which raise."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()

@@ -118,6 +118,72 @@ def test_head_body_and_tail_at_one_offset(card, offset):
     assert torch.equal(_bits(w1[offset:]), _bits(want_w1))
 
 
+# K8b's and K9's grid: a block of 256 threads for each 1,024 floats, one
+# wave 8 such blocks on each of 132 SMs.
+WAVE = 132 * 8 * 256 * 4  # floats in the first wave of blocks
+SIZES = [1, 2, 3, 4, 5, 1023, 1025, 2049, WAVE + 1, WAVE + 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+def test_grad_bit_equal_at_every_edge(card, n):
+    """K8b at sizes below one vector, one past a block's floats and one
+    past a wave's: the wrapper bit-equal to the plain version, and the
+    entry point writing not a float past n."""
+    y = _tensor(card, (n,), 15)
+    gb = torch.tensor(0.37, device=card)
+    want = _bits(lu.sumsq_grad_reference(y, gb))
+    assert torch.equal(_bits(lu.sumsq_grad(y, gb)), want)
+    dy = torch.full((n + 4,), float("nan"), device=card)
+    assert _build.loss_update_lib().tbus_sumsq_grad(
+        y.data_ptr(), gb.data_ptr(), dy.data_ptr(), n,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dy[:n]), want) and torch.isnan(dy[n:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SIZES)
+def test_update_bit_equal_at_every_edge(card, n):
+    w = _tensor(card, (n,), 16, 0.02)
+    g = _tensor(card, (n,), 17, 37.0)
+    want = _bits(lu.sgd_update_reference(w, g, 1e-3))
+    assert torch.equal(_bits(lu.sgd_update(w, g, 1e-3)), want)
+    w1 = torch.full((n + 4,), float("nan"), device=card)
+    assert _build.loss_update_lib().tbus_sgd_update(
+        w.data_ptr(), g.data_ptr(), w1.data_ptr(), 1e-3, n,
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(w1[:n]), want) and torch.isnan(w1[n:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_grad_and_update_are_one_kernel_launch_each(card, case):
+    y = _tensor(card, case, 19)
+    gb = torch.tensor(0.37, device=card)
+    for fn, kernel in ((lambda: lu.sumsq_grad(y, gb), "sumsq_grad"),
+                       (lambda: lu.sgd_update(y, y, 1e-3), "sgd_update")):
+        seen = _kernels(fn, 3, kernel)
+        assert len(seen) == 1, seen
+        ((name, count),) = seen.items()
+        assert kernel in name and count == 3, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_grad_and_update_allocate_only_their_output(card, case):
+    y = _tensor(card, case, 20)
+    gb = torch.tensor(0.37, device=card)
+    for fn in (lambda: lu.sumsq_grad(y, gb), lambda: lu.sgd_update(y, y, 1e-3)):
+        fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        out = fn()
+        after = torch.cuda.memory_stats()["allocation.all.allocated"]
+        assert after - before == 1 and out.shape == y.shape
+
+
 @pytest.mark.cuda
 def test_empty_tensors_launch_nothing(card):
     e = torch.empty((0, 7), device=card)
@@ -142,10 +208,16 @@ def test_card_tensors_refuse_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.cuda
-def test_sum_squares_backward_runs_k8b(card):
+def test_sum_squares_backward_runs_k8b(card, monkeypatch):
+    """The backward launches K8b through the trimmed path: sumsq_grad's
+    checks do not run (autograd and the forward hold them)."""
     y = _tensor(card, (4, 16), 7).requires_grad_(True)
     before = (lu.sumsq_launches, lu.sumsq_grad_launches)
     loss = lu.SumSquares.apply(y)
+    monkeypatch.setattr(lu, "_check_grad",
+                        lambda *a: pytest.fail("sumsq_grad's checks ran"))
+    monkeypatch.setattr(lu, "sumsq_grad",
+                        lambda *a: pytest.fail("sumsq_grad ran"))
     loss.backward()
     torch.cuda.synchronize()
     assert (lu.sumsq_launches, lu.sumsq_grad_launches) == (
@@ -153,11 +225,11 @@ def test_sum_squares_backward_runs_k8b(card):
     assert torch.equal(_bits(y.grad), _bits(2 * y.detach()))
 
 
-def _sumsq_kernels(fn, calls):
+def _kernels(fn, calls, kernel="sumsq_kernel"):
     """Device kernels a profiled run of `calls` fn() calls launched (name
     -> count), after one unprofiled call. The profiler now and then
-    misses a run's launches, so a run that saw fewer than `calls` of the
-    sumsq kernel is profiled again, up to three runs."""
+    misses a run's launches, so a run that saw fewer than `calls` of
+    `kernel` is profiled again, up to three runs."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -169,7 +241,7 @@ def _sumsq_kernels(fn, calls):
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 seen[e.name] = seen.get(e.name, 0) + 1
-        if sum(c for k, c in seen.items() if "sumsq_kernel" in k) >= calls:
+        if sum(c for k, c in seen.items() if kernel in k) >= calls:
             break
     return seen
 
@@ -179,7 +251,7 @@ def _sumsq_kernels(fn, calls):
 def test_sumsq_is_one_kernel_launch(card, case):
     """One kernel a call, at every size: no finishing kernel, no memset."""
     y = _tensor(card, case, 8)
-    seen = _sumsq_kernels(lambda: lu.sumsq(y), 3)
+    seen = _kernels(lambda: lu.sumsq(y), 3)
     assert len(seen) == 1, seen
     ((name, count),) = seen.items()
     assert "sumsq_kernel" in name and "finish" not in name
@@ -259,7 +331,18 @@ def test_each_launch_is_one_ctypes_call(card, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_installed_torch_has_the_getters_the_launch_path_holds(card):
+    """_load() holds torch._C's private getters of the current device and
+    of a device's current stream; a torch that renamed them fails here."""
+    index = torch.cuda.current_device()
+    assert torch._C._cuda_getDevice() == index
+    assert (torch._C._cuda_getCurrentRawStream(index)
+            == torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
 def test_launches_go_to_the_current_stream(card):
+    lu.sumsq_grad(torch.ones(4, device=card), torch.tensor(1.0, device=card))
     s = torch.cuda.Stream()
     with torch.cuda.stream(s):
         assert lu._stream(torch.cuda.current_device()) == s.cuda_stream
