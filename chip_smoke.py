@@ -74,15 +74,17 @@ across three calls, its ticket counter back at 0; K8b and K9 bit for
 bit; no spills), timed beside their bounds, their plain versions and
 torch.dot, torch.mul and torch.sub, with each call's host enqueue time;
 (viii) K3 against its plain version over 4 carried folds at 8192 x 8192
-x 128 (32K context on a 4-position ring),
-in f32 and bf16, with the fused last fold (o / l in q's dtype), timed
-beside its bound (the split-term design's bf16 passes, the f32 FMA
-figure beside) and scaled_dot_product_attention, in parts (pack, fold,
-combine), and at head dims 256 and 200 (the chunked f32 FMA kernel);
-(ix) path 2 through
+x 128 (32K context on a 4-position ring) and at 8192 x 8192 x 256 (the
+wide heads' kernels), in f32 and bf16, with the fused last fold (o / l
+in q's dtype), timed beside its bound (the split-term design's bf16
+passes, the f32 FMA figure beside) and
+scaled_dot_product_attention, in parts (pack, fold, combine); checked at
+head dims 256 and 200 (2048 and 1000 x 777); the chunked f32 FMA kernel
+past 256 (d 320) checked and timed; (ix) path 2 through
 entry(device="cuda") at the entry's shapes and at hidden 4096, and
-make_ring_attention at seq 8192, with the K1, K2, K8a, K8b, K9 and K3
-counts reset before and read after, held against the same step on the
+make_ring_attention at seq 8192, d 128 and d 256, with the K1, K2, K8a,
+K8b, K9 and K3 (and K3's wide heads apart) counts reset before and read
+after, held against the same step on the
 CPU's plain path and against plain full attention, with the step's wall
 time, device-busy share and every device op over 1% of busy time; (x)
 dryrun_multichip(1) in its own process; (xi) K4, K5 and K6 against
@@ -301,9 +303,10 @@ def phase_build():
 
 def _check_gemm_build(_build):
     """K1's, K2's and K6's GEMM is the TMA + wgmma mainloop, and K3's
-    d <= 128 fold and K5 the split-term wgmma kernels: HGMMA and no HMMA
-    in their SASS, and no spills in ptxas's report of the build (kept
-    beside the library, so a cached build is checked too)."""
+    folds (d <= 256, each padded width) and K5 the split-term wgmma
+    kernels: HGMMA and no HMMA in their SASS, and no spills in ptxas's
+    report of the build (kept beside the library, so a cached build is
+    checked too)."""
     for lib, kernel in (("gemm_bf16", "gemm_sm90_kernel"),
                         ("device_programs", "gemm_sm90_kernel"),
                         ("device_programs", "dot128_kernel"),
@@ -518,12 +521,14 @@ def _device_profile(torch, fn, n):
     return wall_us, sorted(rows, key=lambda r: -r[1])
 
 
-def _device_parts(torch, fn, n, kernels, tries=3):
+def _device_parts(torch, fn, n, kernels, tries=3, optional=()):
     """Device ms of one launch of each of `kernels` (name -> a substring of
     the kernel's name) while fn() runs, from the profiler. Now and then
     the profiler records none of a run's launches of a kernel that ran
     (seen on the card with K7, and with K1 and K3 in a step's profile), so
-    a run that misses one is profiled again, up to `tries` runs."""
+    a run that misses one is profiled again, up to `tries` runs. Parts
+    named in `optional` may be absent (a kernel that this fn() need not
+    launch)."""
     for _ in range(tries):
         _, rows = _device_profile(torch, fn, n)
         out = {}
@@ -531,9 +536,10 @@ def _device_parts(torch, fn, n, kernels, tries=3):
             us = [r[1] / r[2] for r in rows if kname in r[0]]
             if us:
                 out[part] = us[0] / 1e3
-        if len(out) == len(kernels):
+        if all(p in out or p in optional for p in kernels):
             return out
-    missing = sorted(k for p, k in kernels.items() if p not in out)
+    missing = sorted(k for p, k in kernels.items()
+                     if p not in out and p not in optional)
     raise AssertionError(f"the profiler saw no {', '.join(missing)} in "
                          f"{tries} runs")
 
@@ -616,8 +622,10 @@ GEMM_SHAPES = [(4, 16, 16), (4096, 4096, 4096)]  # (M, K, N), timed
 GEMM_CHECKS = [(128, 64, 256), (129, 65, 257), (256, 4104, 384),
                (64, 16384, 64)]
 FOLD = (8192, 8192, 128, 4)  # lq, lk, d, folds: one position of a 4-ring
-# Head dims over K3's 128-wide chunk: (lq, lk, d), two carried folds each.
+WIDE_FOLD = (8192, 8192, 256, 4)  # the same at Gemma's head width
+# More wide heads, checked only: (lq, lk, d), two carried folds each.
 WIDE_FOLDS = [(2048, 2048, 256), (1000, 777, 200)]
+FMA_FOLD = (8192, 8192, 320)  # past the split-term design, timed
 HIDDEN = 4096  # one dense layer of a 7B-class model
 
 
@@ -912,8 +920,8 @@ def phase_loss_update(torch, dev):
     return out
 
 
-def _fold_inputs(torch, rng, dtype):
-    lq, lk, d, folds = FOLD
+def _fold_inputs(torch, rng, shape, dtype):
+    lq, lk, d, folds = shape
     q = torch.from_numpy(rng.standard_normal((lq, d), dtype=np.float32))
     ks = torch.from_numpy(rng.standard_normal((folds, lk, d),
                                               dtype=np.float32))
@@ -928,89 +936,110 @@ def _carry(torch, lq, d):
             torch.zeros((lq, d), device="cuda"))
 
 
-def phase_fold(torch, dev):
-    phase("kernel K3: ring attention's fold against its plain version")
+def _fold_case(torch, dev, rf, shape, dtype, rng):
+    """K3 at one shape and dtype: carried folds and the fused last fold
+    against the plain version, timed beside its bound, the plain version
+    and scaled_dot_product_attention, and in parts on the device."""
     import torch.nn.functional as F
 
-    from tbus_torch.kernels import ieee_fp32, ring_fold as rf
+    from tbus_torch.kernels import ieee_fp32
 
-    lq, lk, d, folds = FOLD
-    rng = np.random.default_rng(SEED + 11)
+    lq, lk, d, folds = shape
     flops = 4.0 * lq * lk * d  # per fold, the function's two products
+    q, ks, vs = _fold_inputs(torch, rng, shape, dtype)
+    m, l, o = _carry(torch, lq, d)
+    pm, pl, po = _carry(torch, lq, d)
+    for i in range(folds):
+        rf.fold_(q, ks[i], vs[i], m, l, o)
+        pm, pl, po = rf.fold_reference(q, ks[i], vs[i], pm, pl, po)
+    got, want = o / l[:, None], po / pl[:, None]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    del got, want, pm, pl, po
+    # The fused last fold: o / l in q's dtype, written by the kernel.
+    fin = rf.fold_(q, ks[0], vs[0], *_carry(torch, lq, d), final=True)
+    fin_want = rf.fold_reference(q, ks[0], vs[0], *_carry(torch, lq, d),
+                                 final=True)
+    fin_diff = (fin.double() - fin_want.double()).abs()
+    fin_err = float(fin_diff.max())
+    # Both round o / l, within 2e-5 of each other in f32, to q's dtype
+    # once: a bf16 output may differ by one more bf16 ulp.
+    ftol = 2e-5 + 2e-5 * fin_want.double().abs()
+    if dtype == torch.bfloat16:
+        ftol = ftol + _bf16_ulp(torch, fin_want.float())
+    if fin.dtype != dtype or not bool((fin_diff <= ftol).all()):
+        raise AssertionError(f"final fold {dtype} d {d}: max abs err "
+                             f"{fin_err}")
+    del fin, fin_want, fin_diff, ftol
+    # Timing: back-to-back folds into one carry.
+    carry = _carry(torch, lq, d)
+    ms = _cuda_ms(torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 10)
+    plain_ms = _cuda_ms(torch, lambda: rf.fold_reference(
+        q, ks[0], vs[0], *_carry(torch, lq, d)), 5)
+    qb, kf, vf = (t[None, None] for t in (q, ks.reshape(-1, d),
+                                          vs.reshape(-1, d)))
+    with ieee_fp32():
+        sdpa_all = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, kf, vf), 5)
+        sdpa_one = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, ks[0][None, None], vs[0][None, None]), 5)
+    nbytes = (q.numel() + 2 * ks[0].numel()) * q.element_size() \
+        + 2 * 4 * (2 * lq + lq * d)
     # The split-term design's bf16 passes of 2 lq lk d: 6 + 6 for f32
     # inputs, 1 + 3 for bf16 (csrc/ring_fold.cu).
-    passes = {torch.float32: 12, torch.bfloat16: 4}
+    passes = 12 if dtype == torch.float32 else 4
+    op_ms = passes * flops / 2 / BF16_TC_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(op_ms, bytes_ms)
+    fma_ms = flops / F32_FLOPS * 1e3
+    # One key split (the wide heads at 8192 rows) merges with the carry
+    # inside the fold: no combine kernel runs.
+    parts = _device_parts(
+        torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 5,
+        {"pack_ms": "fold_pack_kernel", "fold_ms": "fold_wgmma_kernel",
+         "combine_ms": "fold_combine_kernel"}, optional=("combine_ms",))
+    name = str(dtype).replace("torch.", "")
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_one,
+           "library_all_ms": sdpa_all, "bound_ms": bound_ms,
+           "bound_by": "operations" if op_ms >= bytes_ms else "bytes",
+           "fma_bound_ms": fma_ms, "passes": passes,
+           "max_abs_err": err, "final_max_abs_err": fin_err,
+           "tflops": flops / ms / 1e9, **parts}
+    say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)} x{folds} carried "
+        f"folds: o/l within 2e-5 (max abs err {err:.3g}); the fused "
+        f"last fold's {name} o/l within 2e-5"
+        f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''} (max abs "
+        f"err {fin_err:.3g}); one fold {ms * 1e3:.1f} us "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of the function) vs bound "
+        f"{bound_ms * 1e3:.1f} us ({passes} bf16 tensor-core passes) = "
+        f"{bound_ms / ms * 100:.1f}% (f32 FMA figure "
+        f"{fma_ms * 1e3:.1f} us); in parts on the device: pack "
+        f"{parts['pack_ms'] * 1e3:.1f} us, fold "
+        f"{parts['fold_ms'] * 1e3:.1f} us, "
+        + (f"combine {parts['combine_ms'] * 1e3:.1f} us"
+           if "combine_ms" in parts else "merged with the carry in the fold")
+        + f"; plain "
+        f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention over "
+        f"{lk} keys {sdpa_one * 1e3:.1f} us, over {folds * lk} keys "
+        f"{sdpa_all * 1e3:.1f} us (vs {folds} folds "
+        f"{folds * ms * 1e3:.0f} us) [{dev['smi']}]")
+    return rec
+
+
+def phase_fold(torch, dev):
+    phase("kernel K3: ring attention's fold against its plain version")
+    from tbus_torch.kernels import ring_fold as rf
+
+    rng = np.random.default_rng(SEED + 11)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, ks, vs = _fold_inputs(torch, rng, dtype)
-        m, l, o = _carry(torch, lq, d)
-        pm, pl, po = _carry(torch, lq, d)
-        for i in range(folds):
-            rf.fold_(q, ks[i], vs[i], m, l, o)
-            pm, pl, po = rf.fold_reference(q, ks[i], vs[i], pm, pl, po)
-        got, want = o / l[:, None], po / pl[:, None]
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        # The fused last fold: o / l in q's dtype, written by the kernel.
-        fin = rf.fold_(q, ks[0], vs[0], *_carry(torch, lq, d), final=True)
-        fin_want = rf.fold_reference(q, ks[0], vs[0], *_carry(torch, lq, d),
-                                     final=True)
-        fin_diff = (fin.double() - fin_want.double()).abs()
-        fin_err = float(fin_diff.max())
-        # Both round o / l, within 2e-5 of each other in f32, to q's dtype
-        # once: a bf16 output may differ by one more bf16 ulp.
-        ftol = 2e-5 + 2e-5 * fin_want.double().abs()
-        if dtype == torch.bfloat16:
-            ftol = ftol + _bf16_ulp(torch, fin_want.float())
-        if fin.dtype != dtype or not bool((fin_diff <= ftol).all()):
-            raise AssertionError(f"final fold {dtype}: max abs err {fin_err}")
-        # Timing: back-to-back folds into one carry.
-        carry = _carry(torch, lq, d)
-        ms = _cuda_ms(torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 10)
-        plain_ms = _cuda_ms(torch, lambda: rf.fold_reference(
-            q, ks[0], vs[0], *_carry(torch, lq, d)), 5)
-        qb, kf, vf = (t[None, None] for t in (q, ks.reshape(-1, d),
-                                              vs.reshape(-1, d)))
-        with ieee_fp32():
-            sdpa_32k = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qb, kf, vf), 5)
-            sdpa_one = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qb, ks[0][None, None], vs[0][None, None]), 5)
-        nbytes = (q.numel() + 2 * ks[0].numel()) * q.element_size() \
-            + 2 * 4 * (2 * lq + lq * d)
-        op_ms = passes[dtype] * flops / 2 / BF16_TC_FLOPS * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(op_ms, bytes_ms)
-        fma_ms = flops / F32_FLOPS * 1e3
-        parts = _device_parts(
-            torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 5,
-            {"pack_ms": "fold_pack_kernel", "fold_ms": "fold_wgmma_kernel",
-             "combine_ms": "fold_combine_kernel"})
-        name = str(dtype).replace("torch.", "")
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_one,
-                     "library_32k_ms": sdpa_32k, "bound_ms": bound_ms,
-                     "bound_by": ("operations" if op_ms >= bytes_ms
-                                  else "bytes"),
-                     "fma_bound_ms": fma_ms, "passes": passes[dtype],
-                     "max_abs_err": err, "final_max_abs_err": fin_err,
-                     "tflops": flops / ms / 1e9, **parts}
-        say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)} x{folds} carried "
-            f"folds: o/l within 2e-5 (max abs err {err:.3g}); the fused "
-            f"last fold's {name} o/l within 2e-5"
-            f"{' + 1 bf16 ulp' if dtype == torch.bfloat16 else ''} (max abs "
-            f"err {fin_err:.3g}); one fold {ms * 1e3:.0f} us "
-            f"({flops / ms / 1e9:.1f} TFLOP/s of the function) vs bound "
-            f"{bound_ms * 1e3:.1f} us ({passes[dtype]} bf16 tensor-core "
-            f"passes) = {bound_ms / ms * 100:.1f}% (f32 FMA figure "
-            f"{fma_ms * 1e3:.1f} us); in parts on the device: pack "
-            f"{parts['pack_ms'] * 1e3:.1f} us, fold "
-            f"{parts['fold_ms'] * 1e3:.1f} us, combine "
-            f"{parts['combine_ms'] * 1e3:.1f} us; plain "
-            f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention over "
-            f"{lk} keys {sdpa_one * 1e3:.0f} us, over {folds * lk} keys "
-            f"{sdpa_32k * 1e3:.0f} us (vs {folds} folds "
-            f"{folds * ms * 1e3:.0f} us) [{dev['smi']}]")
+    all0, wide0 = rf.launches, rf.wide_launches
+    for shape in (FOLD, WIDE_FOLD):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            out[f"d{shape[2]}/{name}"] = _fold_case(torch, dev, rf, shape,
+                                                    dtype, rng)
+            torch.cuda.empty_cache()
     for wlq, wlk, wd in WIDE_FOLDS:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.from_numpy(rng.standard_normal(
@@ -1027,10 +1056,39 @@ def phase_fold(torch, dev):
             torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
             torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
             say(f"K3 ring_fold {str(dtype)[6:]} (lq,lk,d)={(wlq, wlk, wd)} "
-                f"x2 carried folds, the chunked f32 FMA kernel over "
-                f"{-(-wd // rf.HEAD_CHUNK)} head-dim chunks: o/l within 2e-5 "
-                f"(max abs err "
+                f"x2 carried folds, the split-term wgmma kernel at padded "
+                f"width {128 if wd <= 128 else -(-wd // 64) * 64}: o/l "
+                f"within 2e-5 (max abs err "
                 f"{float((got - want).abs().max()):.3g})")
+    # Past the split-term design (d > 256): the chunked f32 FMA kernel.
+    fma0 = rf.launches
+    lq, lk, d = FMA_FOLD
+    flops = 4.0 * lq * lk * d
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (n, d), dtype=np.float32)).cuda().to(dtype)
+            for n in (lq, lk, lk))
+        m, l, o = _carry(torch, lq, d)
+        rf.fold_(q, k, v, m, l, o)
+        pm, pl, po = rf.fold_reference(q, k, v, *_carry(torch, lq, d))
+        got, want = o / l[:, None], po / pl[:, None]
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        del got, want, pm, pl, po
+        carry = _carry(torch, lq, d)
+        ms = _cuda_ms(torch, lambda: rf.fold_(q, k, v, *carry), 3, warmup=1)
+        name = str(dtype).replace("torch.", "")
+        out[f"d{d}/{name}"] = {"ms": ms, "max_abs_err": err,
+                          "fma_bound_ms": flops / F32_FLOPS * 1e3}
+        say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)}, the chunked f32 "
+            f"FMA kernel (d > {rf.WGMMA_MAX_D}): o/l within 2e-5 (max abs "
+            f"err {err:.3g}); one fold {ms * 1e3:.0f} us vs its f32 FMA "
+            f"figure {flops / F32_FLOPS * 1e6:.0f} us = "
+            f"{flops / F32_FLOPS * 1e3 / ms * 100:.1f}% [{dev['smi']}]")
+    wide, fma = rf.wide_launches - wide0, rf.launches - fma0
+    out["launches"] = {"ring_fold": rf.launches - all0 - wide - fma,
+                       "ring_fold_wide": wide, "ring_fold_fma": fma}
+    say(f"K3 launches in this phase: {json.dumps(out['launches'])}")
     return out
 
 
@@ -1125,6 +1183,7 @@ def phase_entry(torch, dev, tmp):
     try:
         # The main path's run: every count starts at 0 here.
         gemm.matmul_launches = gemm.dw_launches = rf.launches = 0
+        rf.wide_launches = 0
         lu.sumsq_launches = lu.sumsq_grad_launches = 0
         lu.sgd_update_launches = collective.ring_rotations = 0
         step, (w, x) = entry.entry("cuda")
@@ -1137,9 +1196,12 @@ def phase_entry(torch, dev, tmp):
         ring = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
         attn = collective.make_ring_attention(ring, "sp")
         rng = np.random.default_rng(SEED + 12)
-        qkv = [torch.from_numpy(rng.standard_normal(
-            (FOLD[0], FOLD[2]), dtype=np.float32)).cuda() for _ in range(3)]
-        att = attn(*qkv)
+        # Ring attention at d 128 and at Gemma's head width 256 (K3's
+        # wide heads).
+        qkvs = {d: [torch.from_numpy(rng.standard_normal(
+            (FOLD[0], d), dtype=np.float32)).cuda() for _ in range(3)]
+            for d in (FOLD[2], WIDE_FOLD[2])}
+        atts = {d: attn(*qkv) for d, qkv in qkvs.items()}
         torch.cuda.synchronize()
         counts = {"matmul_bf16_f32": gemm.matmul_launches,
                   "dw_f32_bf16": gemm.dw_launches,
@@ -1147,9 +1209,11 @@ def phase_entry(torch, dev, tmp):
                   "sumsq_grad": lu.sumsq_grad_launches,
                   "sgd_update": lu.sgd_update_launches,
                   "ring_fold": rf.launches,
+                  "ring_fold_wide": rf.wide_launches,
                   "ring_rotations": collective.ring_rotations}
         say(f"main-path 2 counts: {json.dumps(counts)}")
-        if min(v for k, v in counts.items() if k != "ring_rotations") <= 0:
+        if min(v for k, v in counts.items() if k != "ring_rotations") <= 0 \
+                or counts["ring_fold"] <= counts["ring_fold_wide"]:
             raise AssertionError(f"main path 2 missed a kernel: {counts}")
 
         loss_err = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
@@ -1162,17 +1226,20 @@ def phase_entry(torch, dev, tmp):
         if not losses[1] < losses[0]:
             raise AssertionError(f"loss did not fall: {losses}")
         _check_big_step(torch, bw, bx, float(big_loss), big_w1, big_losses)
-        want = _plain_attention(torch, *qkv)
-        att_err = float((att - want).abs().max())
-        torch.testing.assert_close(att, want, rtol=2e-5, atol=2e-5)
-        say(f"make_ring_attention (world 1, seq {FOLD[0]}, d {FOLD[2]}) "
-            f"== plain full attention (max abs err {att_err:.3g})")
+        for d, att in atts.items():
+            want = _plain_attention(torch, *qkvs[d])
+            att_err = float((att - want).abs().max())
+            torch.testing.assert_close(att, want, rtol=2e-5, atol=2e-5)
+            say(f"make_ring_attention (world 1, seq {FOLD[0]}, d {d}) "
+                f"== plain full attention (max abs err {att_err:.3g})")
+            del want
 
         for name, fn, n, n_prof in (
                 ("entry shape step", lambda: step(w, x), 50, 20),
                 (f"hidden {HIDDEN} step", lambda: big_step(bw, bx), 10, 3),
-                (f"ring attention seq {FOLD[0]}", lambda: attn(*qkv), 10,
-                 3)):
+                *((f"ring attention seq {FOLD[0]} d {d}",
+                   lambda qkv=qkv: attn(*qkv), 10, 3)
+                  for d, qkv in qkvs.items())):
             wall = _wall_p50_us(torch, fn, n)
             prof_us, rows = _device_profile(torch, fn, n_prof)
             per_call, busy = prof_us / n_prof, sum(r[1] for r in rows)
@@ -3397,19 +3464,34 @@ def main():
             "shape": [HIDDEN, HIDDEN],
             "shapes": {str(list(k)): v for k, v in loss_recs[name].items()},
         })
-    f32 = fold_recs["float32"]
-    kernels.append({
-        "name": "ring_fold", "route": "cuda",
-        "source": "tbus_torch/csrc/ring_fold.cu",
-        "replaces": "tbus/parallel/collective.py:125",
-        "launches": counts["ring_fold"], "match": True,
-        "max_abs_err": max(r["max_abs_err"] for r in fold_recs.values()),
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"], "shape": list(FOLD[:3]),
-        "design": "split_wgmma", "fma_bound_ms": f32["fma_bound_ms"],
-        "dtypes": fold_recs,
-    })
+    # K3: the d <= 128 kernels and the wide heads' (d 129-256), each
+    # with its own launches on path 2; the FMA kernel past 256 beside the
+    # wide entry.
+    for name, shape, launched in (
+            ("ring_fold", FOLD,
+             counts["ring_fold"] - counts["ring_fold_wide"]),
+            ("ring_fold_wide", WIDE_FOLD, counts["ring_fold_wide"])):
+        d = shape[2]
+        f32 = fold_recs[f"d{d}/float32"]
+        recs = {k: v for k, v in fold_recs.items() if k.startswith(f"d{d}/")}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tbus_torch/csrc/ring_fold.cu",
+            "replaces": "tbus/parallel/collective.py:125",
+            "launches": launched, "match": True,
+            "phase_fold_launches": fold_recs["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+            "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+            "library_ms": f32["library_ms"], "shape": list(shape[:3]),
+            "design": "split_wgmma" if d == 128 else "split_wgmma_wide",
+            "fma_bound_ms": f32["fma_bound_ms"], "dtypes": recs,
+        })
+    kernels[-1]["fma_route"] = {
+        k: v for k, v in fold_recs.items() if k.startswith(
+            f"d{FMA_FOLD[2]}/")}
+    kernels[-1]["fma_route"]["phase_fold_launches"] = \
+        fold_recs["launches"]["ring_fold_fma"]
     # Path 3's kernels: launches are the runtime's own counts over path 3a
     # (device methods), 3b (serving), 5a (the generator), 6 (the ops
     # planes) and 7 (the redial), each run from 0.

@@ -16,10 +16,11 @@ returns ``(o' / l').to(q.dtype)`` instead of writing o' (m' and l' are
 still written), so the last step's normalise-and-cast runs inside the
 kernel.
 
-On the card, heads up to :data:`HEAD_CHUNK` wide take the split-term
+On the card, heads up to :data:`WGMMA_MAX_D` wide take the split-term
 design (both products on the tensor cores over exact bf16 terms of the
-f32 operands: a pack, the fold, and a merge of the key splits); wider
-heads take the chunked f32 FMA kernel (csrc/ring_fold.cu).
+f32 operands: a pack, the fold, and a merge of the key splits where
+there are several), d padded to 128, 192 or 256; wider heads take the
+chunked f32 FMA kernel (csrc/ring_fold.cu).
 """
 
 from __future__ import annotations
@@ -31,13 +32,15 @@ import torch
 from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
 
 # Kernel launches made by this process (bumped only where the kernel is
-# launched, never by the plain version).
+# launched, never by the plain version); wide_launches counts those that
+# ran the wide heads' kernels (128 < d <= WGMMA_MAX_D).
 launches = 0
+wide_launches = 0
 
-# The widest head the split-term wgmma kernel takes; a wider d runs in the
-# chunked FMA kernel, in chunks of this many columns, whose m and l go to
-# fresh outputs (csrc/ring_fold.cu).
-HEAD_CHUNK = 128
+# The widest head the split-term wgmma design takes; a wider d runs in the
+# chunked FMA kernel, whose m and l go to fresh outputs
+# (csrc/ring_fold.cu).
+WGMMA_MAX_D = 256
 
 
 def _check(q, k_blk, v_blk, m, l, o) -> None:
@@ -95,7 +98,7 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     final=True writes m and l, leaves o, and returns (o' / l') in q's
     dtype. Launches the kernel for CUDA tensors; the plain version serves
     only tensors on the CPU."""
-    global launches
+    global launches, wide_launches
     _check(q, k_blk, v_blk, m, l, o)
     if q.device.type == "cpu":
         m_new, l_new, o_new = fold_reference(q, k_blk, v_blk, m, l, o)
@@ -122,7 +125,7 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     # The split-term kernel writes m and l in place; the chunked one's
     # blocks read the old m and l until the last of them ends, so theirs
     # go to fresh tensors.
-    m_out, l_out = ((m, l) if d <= HEAD_CHUNK
+    m_out, l_out = ((m, l) if d <= WGMMA_MAX_D
                     else (torch.empty_like(m), torch.empty_like(l)))
     out = torch.empty((lq, d), dtype=q.dtype, device=q.device) \
         if final else None
@@ -140,6 +143,8 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ring_fold kernel launch failed: CUDA error {err}")
     launches += 1
+    if 128 < d <= WGMMA_MAX_D:
+        wide_launches += 1
     if m_out is not m:
         m.copy_(m_out)
         l.copy_(l_out)

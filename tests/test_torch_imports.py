@@ -1,6 +1,6 @@
-"""The port stands alone: no file of tbus_torch/, and neither
-chip_smoke.py nor loss_host_split.py, imports jax or anything of the JAX
-package (tbus), neither in its code nor in the Python source it hands to
+"""The port stands alone: no file of tbus_torch/, and none of
+chip_smoke.py, loss_host_split.py and fold_turns.py, imports jax or
+anything of the JAX package (tbus), neither in its code nor in the Python source it hands to
 child processes (launch_local bodies, the dryrun's RPC leg). The card's
 test files, which run there without tests/conftest.py, import neither
 either."""
@@ -16,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "loss_host_split.py")]
+             os.path.join(ROOT, "loss_host_split.py"),
+             os.path.join(ROOT, "fold_turns.py")]
     for dirpath, _dirs, names in os.walk(os.path.join(ROOT, "tbus_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -10,9 +10,9 @@ reference's own ring test holds ring attention to full attention
 (tests/test_collectives.py:97). The kernel rescales per tile of 64 keys
 where the plain version takes one max over the whole block, and sums in
 another order; the same inputs reach both in f32, so bf16 inputs are held
-to the same tolerance. Heads up to 128 wide run the split-term design
-(both products on wgmma over exact bf16 terms); wider heads the chunked
-f32 FMA kernel. The fused last fold (final=True) writes o / l in q's
+to the same tolerance. Heads up to 256 wide run the split-term design
+(both products on wgmma over exact bf16 terms; d padded to 128, 192 or
+256); wider heads the chunked f32 FMA kernel. The fused last fold (final=True) writes o / l in q's
 dtype: an f32 output is held to the same 2e-5, a bf16 one to that plus
 one bf16 ulp (both round an f32 value that close to bf16 once).
 """
@@ -27,13 +27,14 @@ from tbus_torch.kernels import ring_fold as rf
 
 # (lq, lk, d, folds): the entry's ring (local 8, d 16), the JAX test's
 # (local 16, d 32), 32K context over a 4-position ring, ragged shapes
-# that are no multiple of the 64-row tiles, and head dims over the
-# kernel's 128-wide chunk (256, and ragged ones that leave a partial
-# last chunk).
+# that are no multiple of the 64-row tiles, the wide heads (d 129-256:
+# 8192 x 256 as Gemma's heads at 8K context, and ragged widths padded
+# to 192 and 256) and one past them (400, the FMA kernel).
 SHAPES = [(8, 8, 16, 8), (16, 16, 32, 8), (8192, 8192, 128, 4),
           (1, 1, 8, 2), (100, 77, 48, 3), (65, 130, 128, 2),
           (200, 63, 100, 2), (8, 8, 256, 4), (1024, 1024, 256, 2),
-          (100, 77, 200, 3), (70, 129, 129, 2), (33, 65, 400, 2)]
+          (100, 77, 200, 3), (70, 129, 129, 2), (33, 65, 400, 2),
+          (8192, 8192, 256, 2)]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -63,12 +64,13 @@ def test_fold_kernel_matches_plain_version(card, shape, dtype):
         for _ in range(folds)]
     m, l, o = _carry(lq, d, card)
     pm, pl, po = _carry(lq, d, card)
-    before = rf.launches
+    before, wide_before = rf.launches, rf.wide_launches
     for k, v in blocks:
         rf.fold_(q, k, v, m, l, o)
         pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
     torch.cuda.synchronize()
     assert rf.launches == before + folds
+    assert rf.wide_launches == wide_before + (folds if 128 < d <= 256 else 0)
     assert bool(torch.isfinite(o).all()) and bool((l > 0).all())
     torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(o / l[:, None], po / pl[:, None],
@@ -84,7 +86,8 @@ def _bf16_ulp(a):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 8, 16, 1), (16, 16, 32, 8),
                                    (100, 77, 48, 3), (8192, 8192, 128, 2),
-                                   (70, 129, 129, 2), (33, 65, 400, 2)],
+                                   (70, 129, 129, 2), (33, 65, 400, 2),
+                                   (100, 77, 256, 2), (65, 130, 192, 2)],
                          ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_final_fold_writes_the_normalised_output(card, shape, dtype):
@@ -122,16 +125,21 @@ def test_final_fold_writes_the_normalised_output(card, shape, dtype):
 
 @pytest.mark.cuda
 def test_k3_runs_wgmma(card):
-    """The d <= 128 fold is the split-term wgmma kernel: HGMMA in the SASS
-    of both instantiations (f32 and bf16 inputs), no HMMA, and no spills
-    in ptxas's report."""
-    q = torch.ones((8, 16), device=card)
-    rf.fold_(q, q, q, *_carry(8, 16, card))
+    """Every d up to 256 folds in the split-term wgmma kernel: HGMMA in
+    the SASS of each of its six instantiations (f32 and bf16 inputs, each
+    at the padded widths 128, 192 and 256), no HMMA, and no spills in
+    ptxas's report."""
+    for d in (16, 129, 256):
+        for dtype in DTYPES:
+            q = torch.ones((8, d), device=card, dtype=dtype)
+            rf.fold_(q, q, q, *_carry(8, d, card))
+    torch.cuda.synchronize()
     from tbus_torch.kernels import _build
 
     report = _build.gemm_sass("ring_fold", kernel="fold_wgmma_kernel")
-    assert len(report) == 2, report
+    assert len(report) == 6, report
     usage = _build.ptxas_usage("ring_fold")
     for fn, counts in report.items():
         assert counts["HGMMA"] > 0 and counts["HMMA"] == 0, (fn, counts)
-        assert usage[fn]["spill_stores"] + usage[fn]["spill_loads"] == 0
+        assert usage[fn]["spill_stores"] + usage[fn]["spill_loads"] == 0, \
+            (fn, usage[fn])

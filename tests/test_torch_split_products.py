@@ -11,11 +11,12 @@ kernels run only on the card; these tests pin, before any card runs them:
 - each design's arithmetic, emulated: split terms, each product exact (in
   f64), each group of 16 products (one wgmma k-step) summed exactly and
   rounded into an f32 accumulator, the terms in the kernels' order
-  (smallest first), K3's i + j <= 2 cross terms, its 64-key tiles with
-  the online rescale, p's split by integer arithmetic (round half away
-  from zero, exact all the same), its key splits and their merge. K3's emulation is
-  held to the JAX package's ring attention (tbus/parallel/collective.py
-  :125 ring_attention.fold over a 4-position ring, as
+  (smallest first), K3's i + j <= 2 cross terms, its padded widths
+  (128, 192, 256) and tiles of 64 or 32 keys with the online rescale,
+  p's split by integer arithmetic (round half away from zero, exact all
+  the same), its key splits and their merge. K3's emulation is held to
+  the JAX package's ring attention (tbus/parallel/collective.py :125
+  ring_attention.fold over a 4-position ring, as
   tests/test_collectives.py runs it) within its 2e-5, f32 and bf16
   inputs; K2's to JAX's gradient of shard_body's product within
   chip_smoke.py's _dw_check tolerance (one bf16 ulp plus 2 sqrt(M)
@@ -247,17 +248,29 @@ def _pairs(ni: int, nj: int):
             if i < ni and s - i < nj]
 
 
+def fold_tiling(d: int, nt: int):
+    """K3's padded head width and keys per tile (csrc/ring_fold.cu Fold):
+    d up to 128 pads to 128 with 64-key tiles; wider heads pad to the next
+    multiple of 64, with 32-key tiles for f32 inputs (three terms) and 64
+    for bf16."""
+    kd = 128 if d <= 128 else -(-d // 64) * 64
+    return kd, 32 if kd > 128 and nt == 3 else 64
+
+
 def emulate_fold(q, k, v, m, l, o, nsplit, final=False):
     """K3's arithmetic on one block (csrc/ring_fold.cu): head dim padded to
-    128, tiles of 64 keys split into nsplit runs, each run an
-    online softmax from -inf with s and o_tile summed by k16 groups into
+    its width, tiles of keys (fold_tiling) split into nsplit runs, each run
+    an online softmax from -inf with s and o_tile summed by k16 groups into
     f32, o = fma(o, a, o_tile), p split by split3_bits; then the merge
-    with the carry."""
+    with the carry. Wide heads (d > 128) with f32 inputs sum s over the
+    head dim's two halves (alternate groups of 16 columns) apart and add
+    the halves (bf16 inputs: one sum);
+    their column halves of o run the same arithmetic on the same p."""
     nt = 3 if q.dtype == torch.float32 else 1
     lq, d = q.shape
     lk = k.shape[0]
-    dpad = 128
-    tiles = -(-lk // 64)
+    dpad, keys = fold_tiling(d, nt)
+    tiles = -(-lk // keys)
     f32 = np.float32
     scale = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(d))))
 
@@ -267,36 +280,44 @@ def emulate_fold(q, k, v, m, l, o, nsplit, final=False):
         return out
 
     qt = _terms(padded(q.float(), lq), nt)
-    kt = _terms(padded(k.float(), tiles * 64), nt)
-    vt = _terms(padded(v.float(), tiles * 64), nt)
+    kt = _terms(padded(k.float(), tiles * keys), nt)
+    vt = _terms(padded(v.float(), tiles * keys), nt)
     parts = []
     for sp in range(nsplit):
         mr = torch.full((lq,), -math.inf, dtype=torch.float64)
         lr = torch.zeros(lq, dtype=torch.float64)
         orun = torch.zeros((lq, dpad), dtype=torch.float64)
         for j in range(sp * tiles // nsplit, (sp + 1) * tiles // nsplit):
-            keys = slice(64 * j, 64 * j + 64)
-            s = torch.zeros((lq, 64), dtype=torch.float64)
-            for i, jj in _pairs(nt, nt):
-                for g in range(0, dpad, 16):
-                    s = _round_f32(s + qt[i][:, g:g + 16]
-                                   @ kt[jj][keys, g:g + 16].T)
+            tile = slice(keys * j, keys * j + keys)
+            # Wide heads, f32 inputs: each consumer sums s over its half
+            # of the head dim (every other group of 16 columns), and s is
+            # the f32 sum of the two halves.
+            nh = 2 if dpad > 128 and nt == 3 else 1
+            halves = []
+            for h in range(nh):
+                sh = torch.zeros((lq, keys), dtype=torch.float64)
+                for i, jj in _pairs(nt, nt):
+                    for g in range(16 * h, dpad, 16 * nh):
+                        sh = _round_f32(sh + qt[i][:, g:g + 16]
+                                        @ kt[jj][tile, g:g + 16].T)
+                halves.append(sh)
+            s = _round_f32(sum(halves))
             s = _round_f32(s * scale)
-            s[:, torch.arange(64) + 64 * j >= lk] = -math.inf
+            s[:, torch.arange(keys) + keys * j >= lk] = -math.inf
             m_new = torch.maximum(mr, s.max(dim=1).values)
             alpha = torch.from_numpy(np.exp((mr - m_new).numpy().astype(f32))
                                      ).double()
             p = torch.from_numpy(np.exp((s - m_new[:, None]).numpy()
                                         .astype(f32))).double()
             lr = _round_f32(lr * alpha)
-            for c in range(64):
+            for c in range(keys):
                 lr = _round_f32(lr + p[:, c])
             pt = split3_bits(p)
             ot = torch.zeros((lq, dpad), dtype=torch.float64)
             for i, jj in _pairs(3, nt):
-                for g in range(0, 64, 16):
+                for g in range(0, keys, 16):
                     ot = _round_f32(ot + pt[i][:, g:g + 16]
-                                    @ vt[jj][keys][g:g + 16])
+                                    @ vt[jj][tile][g:g + 16])
             orun = _round_f32(orun * alpha[:, None] + ot)
             mr = m_new
         parts.append((mr, lr, orun[:, :d]))
@@ -347,7 +368,9 @@ def _emulated_ring(q, k, v, local, nsplit):
 
 
 @pytest.mark.parametrize("local,d,nsplit", [(16, 32, 1), (100, 48, 2),
-                                            (130, 128, 3)], ids=str)
+                                            (130, 128, 3), (64, 200, 2),
+                                            (48, 256, 1), (40, 160, 3)],
+                         ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_k3_emulation_matches_jax_ring_attention(local, d, nsplit, dtype):
     """A 4-position ring: JAX's ring_attention (its fold over the carried
