@@ -75,16 +75,17 @@ bit; no spills), timed beside their bounds, their plain versions and
 torch.dot, torch.mul and torch.sub, with each call's host enqueue time;
 (viii) K3 against its plain version over 4 carried folds at 8192 x 8192
 x 128 (32K context on a 4-position ring) and at 8192 x 8192 x 256 (the
-wide heads' kernels), in f32 and bf16, with the fused last fold (o / l
-in q's dtype), timed beside its bound (the split-term design's bf16
-passes, the f32 FMA figure beside) and
-scaled_dot_product_attention, in parts (pack, fold, combine); checked at
-head dims 256 and 200 (2048 and 1000 x 777); the chunked f32 FMA kernel
-past 256 (d 320) checked and timed; (ix) path 2 through
+wide heads' kernels), and over 2 at 8192 x 8192 x 320 and x 512 (the
+head-dim-streamed kernels past 256), in f32 and bf16, with the fused
+last fold (o / l in q's dtype), timed beside its bound (the split-term
+design's bf16 passes, the f32 FMA figure beside) and
+scaled_dot_product_attention (with the backend PyTorch picked), in
+parts (pack, fold, combine); checked at head dims 256, 200, 400 and
+1000 (2048, 1000 x 777); (ix) path 2 through
 entry(device="cuda") at the entry's shapes and at hidden 4096, and
-make_ring_attention at seq 8192, d 128 and d 256, with the K1, K2, K8a,
-K8b, K9 and K3 (and K3's wide heads apart) counts reset before and read
-after, held against the same step on the
+make_ring_attention at seq 8192, d 128, 256 and 512, with the K1, K2,
+K8a, K8b, K9 and K3 (and K3's wide and streamed routes apart) counts
+reset before and read after, held against the same step on the
 CPU's plain path and against plain full attention, with the step's wall
 time, device-busy share and every device op over 1% of busy time; (x)
 dryrun_multichip(1) in its own process; (xi) K4, K5 and K6 against
@@ -303,10 +304,10 @@ def phase_build():
 
 def _check_gemm_build(_build):
     """K1's, K2's and K6's GEMM is the TMA + wgmma mainloop, and K3's
-    folds (d <= 256, each padded width) and K5 the split-term wgmma
-    kernels: HGMMA and no HMMA in their SASS, and no spills in ptxas's
-    report of the build (kept beside the library, so a cached build is
-    checked too)."""
+    folds (each resident width and streamed column group) and K5 the
+    split-term wgmma kernels: HGMMA and no HMMA in their SASS, and no
+    spills in ptxas's report of the build (kept beside the library, so a
+    cached build is checked too)."""
     for lib, kernel in (("gemm_bf16", "gemm_sm90_kernel"),
                         ("device_programs", "gemm_sm90_kernel"),
                         ("device_programs", "dot128_kernel"),
@@ -623,9 +624,13 @@ GEMM_CHECKS = [(128, 64, 256), (129, 65, 257), (256, 4104, 384),
                (64, 16384, 64)]
 FOLD = (8192, 8192, 128, 4)  # lq, lk, d, folds: one position of a 4-ring
 WIDE_FOLD = (8192, 8192, 256, 4)  # the same at Gemma's head width
-# More wide heads, checked only: (lq, lk, d), two carried folds each.
-WIDE_FOLDS = [(2048, 2048, 256), (1000, 777, 200)]
-FMA_FOLD = (8192, 8192, 320)  # past the split-term design, timed
+# Past the resident-q kernels (d > 256, q streamed, o in column groups),
+# two carried folds each; the second is path 2's.
+STREAM_FOLDS = [(8192, 8192, 320, 2), (8192, 8192, 512, 2)]
+# Checked only: (lq, lk, d), two carried folds each; wide heads and
+# ragged widths past 256 (400: two column groups; 1000: four).
+CHECK_FOLDS = [(2048, 2048, 256), (1000, 777, 200), (2048, 2048, 400),
+               (1000, 777, 1000)]
 HIDDEN = 4096  # one dense layer of a 7B-class model
 
 
@@ -936,6 +941,22 @@ def _carry(torch, lq, d):
             torch.zeros((lq, d), device="cuda"))
 
 
+def _sdpa_backend(torch, fn):
+    """The backend scaled_dot_product_attention ran in fn(): the name of
+    the aten op it dispatched to (flash, efficient, cudnn or math)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.key.startswith("aten::_scaled_dot_product")
+                    or e.key.startswith("aten::_efficient_attention")
+                    or e.key.startswith("aten::_flash_attention")})
+    return ", ".join(names) or "none seen"
+
+
 def _fold_case(torch, dev, rf, shape, dtype, rng):
     """K3 at one shape and dtype: carried folds and the fused last fold
     against the plain version, timed beside its bound, the plain version
@@ -984,6 +1005,8 @@ def _fold_case(torch, dev, rf, shape, dtype, rng):
             qb, kf, vf), 5)
         sdpa_one = _cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qb, ks[0][None, None], vs[0][None, None]), 5)
+        backend = _sdpa_backend(torch, lambda: F.scaled_dot_product_attention(
+            qb, ks[0][None, None], vs[0][None, None]))
     nbytes = (q.numel() + 2 * ks[0].numel()) * q.element_size() \
         + 2 * 4 * (2 * lq + lq * d)
     # The split-term design's bf16 passes of 2 lq lk d: 6 + 6 for f32
@@ -993,15 +1016,16 @@ def _fold_case(torch, dev, rf, shape, dtype, rng):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(op_ms, bytes_ms)
     fma_ms = flops / F32_FLOPS * 1e3
-    # One key split (the wide heads at 8192 rows) merges with the carry
-    # inside the fold: no combine kernel runs.
+    # One key split of resident q (the wide heads at 8192 rows) merges
+    # with the carry inside the fold: no combine kernel runs.
     parts = _device_parts(
         torch, lambda: rf.fold_(q, ks[0], vs[0], *carry), 5,
         {"pack_ms": "fold_pack_kernel", "fold_ms": "fold_wgmma_kernel",
          "combine_ms": "fold_combine_kernel"}, optional=("combine_ms",))
     name = str(dtype).replace("torch.", "")
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_one,
-           "library_all_ms": sdpa_all, "bound_ms": bound_ms,
+           "library_all_ms": sdpa_all, "library_backend": backend,
+           "bound_ms": bound_ms,
            "bound_by": "operations" if op_ms >= bytes_ms else "bytes",
            "fma_bound_ms": fma_ms, "passes": passes,
            "max_abs_err": err, "final_max_abs_err": fin_err,
@@ -1020,7 +1044,8 @@ def _fold_case(torch, dev, rf, shape, dtype, rng):
         + (f"combine {parts['combine_ms'] * 1e3:.1f} us"
            if "combine_ms" in parts else "merged with the carry in the fold")
         + f"; plain "
-        f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention over "
+        f"{plain_ms * 1e3:.0f} us; scaled_dot_product_attention "
+        f"({backend}) over "
         f"{lk} keys {sdpa_one * 1e3:.1f} us, over {folds * lk} keys "
         f"{sdpa_all * 1e3:.1f} us (vs {folds} folds "
         f"{folds * ms * 1e3:.0f} us) [{dev['smi']}]")
@@ -1033,61 +1058,41 @@ def phase_fold(torch, dev):
 
     rng = np.random.default_rng(SEED + 11)
     out = {}
-    all0, wide0 = rf.launches, rf.wide_launches
-    for shape in (FOLD, WIDE_FOLD):
+    before = rf.launches, rf.wide_launches, rf.stream_launches
+    for shape in (FOLD, WIDE_FOLD, *STREAM_FOLDS):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).replace("torch.", "")
             out[f"d{shape[2]}/{name}"] = _fold_case(torch, dev, rf, shape,
                                                     dtype, rng)
             torch.cuda.empty_cache()
-    for wlq, wlk, wd in WIDE_FOLDS:
+    for clq, clk, cd in CHECK_FOLDS:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.from_numpy(rng.standard_normal(
-                (wlq, wd), dtype=np.float32)).cuda().to(dtype)
-            m, l, o = _carry(torch, wlq, wd)
-            pm, pl, po = _carry(torch, wlq, wd)
+                (clq, cd), dtype=np.float32)).cuda().to(dtype)
+            m, l, o = _carry(torch, clq, cd)
+            pm, pl, po = _carry(torch, clq, cd)
             for _ in range(2):
                 k, v = (torch.from_numpy(rng.standard_normal(
-                    (wlk, wd), dtype=np.float32)).cuda().to(dtype)
+                    (clk, cd), dtype=np.float32)).cuda().to(dtype)
                     for _ in range(2))
                 rf.fold_(q, k, v, m, l, o)
                 pm, pl, po = rf.fold_reference(q, k, v, pm, pl, po)
             got, want = o / l[:, None], po / pl[:, None]
             torch.testing.assert_close(m, pm, rtol=2e-5, atol=2e-5)
             torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-            say(f"K3 ring_fold {str(dtype)[6:]} (lq,lk,d)={(wlq, wlk, wd)} "
-                f"x2 carried folds, the split-term wgmma kernel at padded "
-                f"width {128 if wd <= 128 else -(-wd // 64) * 64}: o/l "
-                f"within 2e-5 (max abs err "
+            if cd > rf.RESIDENT_MAX_D:
+                route = "q streamed, %d column groups of %d" % (
+                    rf.column_groups(cd))
+            else:
+                route = f"padded width {max(128, -(-cd // 64) * 64)}"
+            say(f"K3 ring_fold {str(dtype)[6:]} (lq,lk,d)={(clq, clk, cd)} "
+                f"x2 carried folds, the split-term wgmma kernel ({route}): "
+                f"o/l within 2e-5 (max abs err "
                 f"{float((got - want).abs().max()):.3g})")
-    # Past the split-term design (d > 256): the chunked f32 FMA kernel.
-    fma0 = rf.launches
-    lq, lk, d = FMA_FOLD
-    flops = 4.0 * lq * lk * d
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (n, d), dtype=np.float32)).cuda().to(dtype)
-            for n in (lq, lk, lk))
-        m, l, o = _carry(torch, lq, d)
-        rf.fold_(q, k, v, m, l, o)
-        pm, pl, po = rf.fold_reference(q, k, v, *_carry(torch, lq, d))
-        got, want = o / l[:, None], po / pl[:, None]
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-        del got, want, pm, pl, po
-        carry = _carry(torch, lq, d)
-        ms = _cuda_ms(torch, lambda: rf.fold_(q, k, v, *carry), 3, warmup=1)
-        name = str(dtype).replace("torch.", "")
-        out[f"d{d}/{name}"] = {"ms": ms, "max_abs_err": err,
-                          "fma_bound_ms": flops / F32_FLOPS * 1e3}
-        say(f"K3 ring_fold {name} (lq,lk,d)={(lq, lk, d)}, the chunked f32 "
-            f"FMA kernel (d > {rf.WGMMA_MAX_D}): o/l within 2e-5 (max abs "
-            f"err {err:.3g}); one fold {ms * 1e3:.0f} us vs its f32 FMA "
-            f"figure {flops / F32_FLOPS * 1e6:.0f} us = "
-            f"{flops / F32_FLOPS * 1e3 / ms * 100:.1f}% [{dev['smi']}]")
-    wide, fma = rf.wide_launches - wide0, rf.launches - fma0
-    out["launches"] = {"ring_fold": rf.launches - all0 - wide - fma,
-                       "ring_fold_wide": wide, "ring_fold_fma": fma}
+    wide = rf.wide_launches - before[1]
+    stream = rf.stream_launches - before[2]
+    out["launches"] = {"ring_fold": rf.launches - before[0] - wide - stream,
+                       "ring_fold_wide": wide, "ring_fold_stream": stream}
     say(f"K3 launches in this phase: {json.dumps(out['launches'])}")
     return out
 
@@ -1183,7 +1188,7 @@ def phase_entry(torch, dev, tmp):
     try:
         # The main path's run: every count starts at 0 here.
         gemm.matmul_launches = gemm.dw_launches = rf.launches = 0
-        rf.wide_launches = 0
+        rf.wide_launches = rf.stream_launches = 0
         lu.sumsq_launches = lu.sumsq_grad_launches = 0
         lu.sgd_update_launches = collective.ring_rotations = 0
         step, (w, x) = entry.entry("cuda")
@@ -1196,11 +1201,11 @@ def phase_entry(torch, dev, tmp):
         ring = init_device_mesh("cuda", (1,), mesh_dim_names=("sp",))
         attn = collective.make_ring_attention(ring, "sp")
         rng = np.random.default_rng(SEED + 12)
-        # Ring attention at d 128 and at Gemma's head width 256 (K3's
-        # wide heads).
+        # Ring attention at d 128, at Gemma's head width 256 (K3's wide
+        # heads) and at 512 (K3's streamed route).
         qkvs = {d: [torch.from_numpy(rng.standard_normal(
             (FOLD[0], d), dtype=np.float32)).cuda() for _ in range(3)]
-            for d in (FOLD[2], WIDE_FOLD[2])}
+            for d in (FOLD[2], WIDE_FOLD[2], STREAM_FOLDS[1][2])}
         atts = {d: attn(*qkv) for d, qkv in qkvs.items()}
         torch.cuda.synchronize()
         counts = {"matmul_bf16_f32": gemm.matmul_launches,
@@ -1210,10 +1215,12 @@ def phase_entry(torch, dev, tmp):
                   "sgd_update": lu.sgd_update_launches,
                   "ring_fold": rf.launches,
                   "ring_fold_wide": rf.wide_launches,
+                  "ring_fold_stream": rf.stream_launches,
                   "ring_rotations": collective.ring_rotations}
         say(f"main-path 2 counts: {json.dumps(counts)}")
         if min(v for k, v in counts.items() if k != "ring_rotations") <= 0 \
-                or counts["ring_fold"] <= counts["ring_fold_wide"]:
+                or counts["ring_fold"] <= (counts["ring_fold_wide"]
+                                           + counts["ring_fold_stream"]):
             raise AssertionError(f"main path 2 missed a kernel: {counts}")
 
         loss_err = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
@@ -3464,16 +3471,22 @@ def main():
             "shape": [HIDDEN, HIDDEN],
             "shapes": {str(list(k)): v for k, v in loss_recs[name].items()},
         })
-    # K3: the d <= 128 kernels and the wide heads' (d 129-256), each
-    # with its own launches on path 2; the FMA kernel past 256 beside the
-    # wide entry.
-    for name, shape, launched in (
-            ("ring_fold", FOLD,
-             counts["ring_fold"] - counts["ring_fold_wide"]),
-            ("ring_fold_wide", WIDE_FOLD, counts["ring_fold_wide"])):
+    # K3: the d <= 128 kernels, the wide heads' (d 129-256) and the
+    # streamed route past 256, each with its own launches on path 2.
+    for name, shape, launched, design in (
+            ("ring_fold", FOLD, counts["ring_fold"]
+             - counts["ring_fold_wide"] - counts["ring_fold_stream"],
+             "split_wgmma"),
+            ("ring_fold_wide", WIDE_FOLD, counts["ring_fold_wide"],
+             "split_wgmma_wide"),
+            ("ring_fold_stream", STREAM_FOLDS[1], counts["ring_fold_stream"],
+             "split_wgmma_stream")):
         d = shape[2]
         f32 = fold_recs[f"d{d}/float32"]
-        recs = {k: v for k, v in fold_recs.items() if k.startswith(f"d{d}/")}
+        recs = {k: v for k, v in fold_recs.items()
+                if k.startswith(f"d{d}/") or (
+                    name == "ring_fold_stream"
+                    and k.startswith(f"d{STREAM_FOLDS[0][2]}/"))}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tbus_torch/csrc/ring_fold.cu",
@@ -3484,14 +3497,9 @@ def main():
             "ms": f32["ms"], "plain_ms": f32["plain_ms"],
             "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
             "library_ms": f32["library_ms"], "shape": list(shape[:3]),
-            "design": "split_wgmma" if d == 128 else "split_wgmma_wide",
-            "fma_bound_ms": f32["fma_bound_ms"], "dtypes": recs,
+            "design": design, "fma_bound_ms": f32["fma_bound_ms"],
+            "dtypes": recs,
         })
-    kernels[-1]["fma_route"] = {
-        k: v for k, v in fold_recs.items() if k.startswith(
-            f"d{FMA_FOLD[2]}/")}
-    kernels[-1]["fma_route"]["phase_fold_launches"] = \
-        fold_recs["launches"]["ring_fold_fma"]
     # Path 3's kernels: launches are the runtime's own counts over path 3a
     # (device methods), 3b (serving), 5a (the generator), 6 (the ops
     # planes) and 7 (the redial), each run from 0.

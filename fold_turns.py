@@ -4,12 +4,13 @@ more source trees, timed in turns on one NVIDIA card.
 
 Each tree runs in a child process of its own, in the order given, which
 imports that tree's ``tbus_torch`` and builds its ring-fold library from
-that tree's sources. Per shape (lq = lk = 8192; d 128 and 256; f32 and
-bf16 inputs) a child checks one fold's o / l against the plain version
-(2e-5), times back-to-back folds into one carry on CUDA events, and
-reads each device kernel's time a fold from torch.profiler (the parts:
-pack, fold and, where it runs, combine; or the one kernel of a design
-that launches one).
+that tree's sources. Per shape (lq = lk = 8192; d 128 and 256, and 320
+and 512 past the resident-q kernels; f32 and bf16 inputs) a child
+checks one fold's o / l against the plain version (2e-5), times
+back-to-back folds into one carry on CUDA events, and reads each device
+kernel's time a fold from torch.profiler (the parts: pack, fold and,
+where it runs, combine; or the one kernel of a design that launches
+one).
 
     python3 fold_turns.py TREE [TREE ...]
 
@@ -25,7 +26,8 @@ import re
 import subprocess
 import sys
 
-SHAPES = [(8192, 8192, 128), (8192, 8192, 256)]
+SHAPES = [(8192, 8192, 128), (8192, 8192, 256), (8192, 8192, 320),
+          (8192, 8192, 512)]
 ITERS = 10
 SEED = 1234
 

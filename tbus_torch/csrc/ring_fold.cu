@@ -16,8 +16,8 @@
 // there, never NaN, because m' is finite once a row has seen one finite
 // score.
 //
-// d <= 256: products on the tensor cores over exact split terms.
-// ---------------------------------------------------------------
+// Products on the tensor cores over exact split terms; d <= 256, q resident.
+// --------------------------------------------------------------------------
 // Both products are f32 in the reference. An f32 value splits exactly into
 // three bf16 terms (gemm_sm90.cuh split3: hi + mid + lo == a, 24 bits),
 // and a product of two bf16 values is exact in f32, so
@@ -108,23 +108,60 @@
 // f32 inputs: s is the f32 sum of its two halves' sums), the rescale
 // happens per tile and per split, and exp is expf in both.
 //
-// d > 256: the chunked f32 FMA kernel (ring_fold_kernel). The split-term
-// design does not fit there: q for 64 rows and a 32-key tile of k and of
-// v^T, three terms each, take 240 KiB of shared memory at d = 320. No
-// published model has heads that wide. One 256-thread block per 64 query
-// rows and per chunk of 128 head-dim columns of o loops over lk in tiles
-// of 64 keys with the online rescale inside the loop; each chunk's block
-// recomputes all of s over every chunk of d in shared memory, and its m
-// and l go to separate outputs, written by the chunk-0 block, since the
-// other chunks' blocks still read the carry's old m. Bound: 4 * lq * lk
-// * d flops at 67 TFLOP/s (f32).
+// d > 256: the head-dim-streamed fold (kStream).
+// -----------------------------------------------
+// Past 256 the wide heads' block does not fit: q for 64 rows in three
+// terms beside a 32-key tile of k and v^T takes 240 KiB of shared memory
+// at d = 320 (a block has 227), and a consumer warpgroup holds at most
+// 128 columns of o beside as many of o_tile (one producer at 40 registers
+// and two consumers at 232 use 64,512 of the SM's 65,536; a third does
+// not fit). So neither q nor all of o stays in one block:
+// - o's columns split across blocks. d pads to D, a multiple of 64, cut
+//   into G = ceil(D / 256) column groups of OW = 192 or 256 columns (D / G
+//   rounded up to 64; v^T is zero past d). A block (grid x = row block * G
+//   + group, y = key split) owns 64 query rows and one group, each
+//   consumer OW / 2 columns, as the wide heads' consumers own KD / 2.
+// - q is streamed. Per tile of 64 keys (both dtypes: q no longer takes
+//   the room), q's and k's 64-column chunks of the head dim (all their
+//   terms, one TMA box each, 128-byte swizzle) go through a ring of
+//   kChunkStages stages with full and empty mbarriers, and the tile of
+//   v^T's group columns through a ring of its own (kStages). A chunk's
+//   stage goes back as soon as the next chunk's products are issued
+//   (wait_group 1); q is re-read from L2 once per key tile.
+// - Every group computes all of s, with the wide heads' arrangement per
+//   dtype: f32 inputs split each chunk's k16 steps between the consumers
+//   and exchange the halves (barrier 3); bf16 inputs compute s in the
+//   first consumer, which hands p to the second (barriers 3 and 4). So
+//   the blocks of a row block never talk, and every G runs.
+// - The fold always writes its (m, l, o) as partials and
+//   fold_combine_kernel merges them with the carry (the wide heads merge
+//   inside the fold where keys do not split): a group's blocks would
+//   otherwise write m and l while another group's still read the carry's.
+//   The partials cost 2 lq G OW f32 more bytes and one launch.
+// Work, in passes of 2 lq lk over a width: f32 6 G D (s, in every group)
+// + 6 G OW (p v), against the bound's 12 D: 1.6x at d = 320 (G 2, OW
+// 192) and 1.5x at 512 (G 2, OW 256); bf16 G D + 3 G OW against 4 D:
+// 1.4x and 1.25x. The repeat is counted against the kernel, not added to
+// the bound. Bound: operations, at 989 TFLOP/s: 12 (f32) or 4 (bf16)
+// passes of 2 lq lk D, at lq = lk = 8192: d = 320 0.521 and 0.174 ms,
+// d = 512 0.834 and 0.278 ms. L2 reads into shared memory a fold: q NT 2
+// lq D (lk / 64) and k NT 2 lk D (lq / 64), each G times, and v^T NT 2 lk
+// G OW (lq / 64): f32 4.03 + 4.03 + 2.42 = 10.47 GB at d = 320, 6.44 +
+// 6.44 + 3.22 = 16.11 GB at 512; bf16 1.34 + 1.34 + 0.81 = 3.49 GB and
+// 2.15 + 2.15 + 1.07 = 5.37 GB. Over the bound's time that asks 19-20
+// TB/s of the L2; the data sheet gives no L2 rate. chip_smoke.py reads
+// what the fold reaches. Exchanging s between a row block's groups (one
+// cluster) issued 1.1x / 1.0x the f32 passes and ran 15-28% faster at
+// d = 320 / 512 (PERF.md), at the cost of a cluster launch, scratch,
+// cross-block barriers and a limit of eight groups; no configuration
+// runs these widths, so it is not kept.
 //
 // Interface: plain C, loaded with ctypes. dtype codes: 0 = f32, 1 = bf16;
 // any d >= 1. tbus_ring_fold_scratch_bytes says how much device scratch
-// the call needs (0 for d > 256). m_out and l_out may alias m and l when
-// d <= 256 and must not otherwise. Launches on the given stream, does not
-// synchronise, returns cudaGetLastError() (a launch refused for its
-// shared memory or its grid returns that error and runs nothing).
+// the call needs. The carry (m, l, o) is updated in place at every width.
+// Launches on the given stream, does not synchronise, returns
+// cudaGetLastError() (a launch refused for its shared memory or its grid
+// returns that error and runs nothing).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,19 +184,28 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// ---- d <= 256: split terms on wgmma ----
+// ---- split terms on wgmma ----
 
-constexpr int kMaxD = 256;         // the widest head the design takes
+constexpr int kMaxD = 256;         // the widest head whose q stays resident
 constexpr int kBox = 64 * 128;     // one TMA box: 64 rows x 64 bf16
 constexpr int kFoldThreads = 384;  // producer + two consumer warpgroups
 constexpr int kPackThreads = 256;
 constexpr int kSmemCap = 232448;  // what a block may use (227 KiB)
 constexpr int kBarBytes = 256;
 
-// KD, the width d is padded to: 128, 192 or 256.
+// KD, the width d is padded to: 128, 192 or 256; past 256, the next
+// multiple of 64 (D).
 inline int padded_d(int d) { return d <= 128 ? 128 : (d + 63) / 64 * 64; }
 
-template <int NT, int KD>
+// Past 256: OW, the width of each of the G = ceil(D / 256) column groups
+// (192 or 256).
+inline int group_width(int d) {
+  const int kd = padded_d(d), g = (kd + 255) / 256;
+  return ((kd + g - 1) / g + 63) / 64 * 64;
+}
+
+// KD: the padded width (resident q), or a column group's (kStream).
+template <int NT, int KD, bool kStream = false>
 struct Fold {
   static constexpr bool kWide = KD > 128;
   // Wide heads: with three terms the consumers split s by head-dim halves
@@ -168,25 +214,42 @@ struct Fold {
   static constexpr bool kSplitS = kWide && NT == 3;
   static constexpr bool kShareP = kWide && NT == 1;
   static constexpr int kRows = kWide ? 64 : 128;  // query rows per block
-  static constexpr int kKeys = kWide && NT == 3 ? 32 : 64;  // keys per tile
+  // Keys per tile: 32 for the wide heads' f32 inputs, whose q takes the
+  // room; 64 elsewhere.
+  static constexpr int kKeys = kWide && NT == 3 && !kStream ? 32 : 64;
   static constexpr int kDB = KD / 64;  // TMA boxes across the head dim
   static constexpr int kOCols = kWide ? KD / 2 : KD;  // o columns a consumer
   static constexpr int kVRows = KD * kKeys / 64;  // rows of a v^T term tile
-  static constexpr int kQBytes = NT * kRows * KD * 2;
+  static constexpr int kQBytes = kStream ? 0 : NT * kRows * KD * 2;
   static constexpr int kTileBytes = NT * kKeys * KD * 2;  // k's, and v^T's
+  // kStream: a stage of the chunk ring, q's and k's terms over 64 columns.
+  static constexpr int kChunkBytes = NT * (kRows + kKeys) * 128;
   // Words a consumer thread hands over: p's A fragments and the rescale.
   static constexpr int kPWords = 3 * (kKeys / 16) * 4 + 2;
   // The consumers' exchange: their halves of s, or p's terms.
   static constexpr int kXBytes = kSplitS   ? 2 * 128 * (kKeys / 2) * 4
                                  : kShareP ? 128 * kPWords * 4
                                            : 0;
-  static constexpr int kFit =
-      (kSmemCap - 1024 - kBarBytes - kQBytes - kXBytes) / (2 * kTileBytes);
-  static constexpr int kStages = kFit < 3 ? kFit : 3;
-  static constexpr int kSmem =
-      kQBytes + kStages * 2 * kTileBytes + kXBytes + kBarBytes + 1024;
+  static constexpr int kFree = kSmemCap - 1024 - kBarBytes - kXBytes;
+  // Resident q: stages of k and v^T tiles. kStream: stages of v^T tiles
+  // (two where two chunks fit beside them, else one), and what is left
+  // for chunks (at most six).
+  static constexpr int kFit = (kFree - kQBytes) / (2 * kTileBytes);
+  static constexpr int kVFit = (kFree - 2 * kChunkBytes) / kTileBytes;
+  static constexpr int kStages = kStream ? (kVFit < 2 ? kVFit : 2)
+                                 : kFit < 3 ? kFit : 3;
+  static constexpr int kChunkFit =
+      (kFree - kStages * kTileBytes) / kChunkBytes;
+  static constexpr int kChunkStages =
+      kStream ? (kChunkFit < 6 ? kChunkFit : 6) : 0;
+  static constexpr int kRingBytes =
+      kStream ? kChunkStages * kChunkBytes + kStages * kTileBytes
+              : kQBytes + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = kRingBytes + kXBytes + kBarBytes + 1024;
   static_assert(KD % 64 == 0 && KD <= kMaxD, "padded width");
+  static_assert(!kStream || kWide, "a column group is wider than 128");
   static_assert(kStages >= 1, "q and one stage must fit");
+  static_assert(!kStream || kChunkStages >= 2, "two chunks must fit");
   static_assert(kSmem <= kSmemCap, "shared memory");
   static_assert(kVRows <= 256, "a v^T term tile is one TMA box");
 };
@@ -388,30 +451,124 @@ __device__ __forceinline__ void s_products(float (&sc)[N], uint64_t qd,
     }
 }
 
+// The online softmax of one tile on s's fragments (sc[4 j + e] is row r
+// = e / 2 of the thread's two, key key0 + 8 j + 2 (l % 4) + e % 2): scale,
+// mask keys past lk, the row max across the row's 4 threads, the rescale
+// alpha of the running (m, l), and p = exp(s - m') into l and, split in
+// three bf16 terms, into p's A fragments.
+template <int KK>
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[KK / 2], int key0, int lk, float scale, int l,
+    float (&m_run)[2], float (&l_run)[2], float (&alpha)[2],
+    uint32_t (&pf)[3][KK / 16][4]) {
+  const bool tail = key0 + KK > lk;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < KK / 2; ++i) {
+    const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i % 2);
+    float v = sc[i] * scale;
+    if (tail && key >= lk) v = -INFINITY;
+    sc[i] = v;
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    alpha[r] = expf(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < KK / 2; i += 2) {
+    uint32_t hi[2], mid[2], lo[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (i / 2) % 2;
+      const float p = expf(sc[i + h] - m_run[r]);
+      l_run[r] += p;
+      split3_bits(p, hi[h], mid[h], lo[h]);
+    }
+    // Keys 16 kk .. 16 kk + 15 are A fragment kk: words (row r0, keys
+    // +0/1), (r0 + 8, +0/1), (r0, +8/9), (r0 + 8, +8/9).
+    const int kk = i / 8, word = (i % 8) / 2;
+    pf[0][kk][word] = pack_hi16(hi[0], hi[1]);
+    pf[1][kk][word] = pack_hi16(mid[0], mid[1]);
+    pf[2][kk][word] = pack_hi16(lo[0], lo[1]);
+  }
+}
+
+// One tile's o_tile = p v over the cross terms, smallest first, A from
+// registers, B the v^T tile at v (its terms kVTerm bytes apart, this
+// consumer's columns at its start) once v_full's phase ph has completed;
+// then gives the tile back and rescales: o = o alpha + o_tile.
+template <int NT, int KK, int N, int kVTerm>
+__device__ __forceinline__ void pv_tile(float (&o)[N], float (&ot)[N],
+                                        uint32_t (&pf)[3][KK / 16][4],
+                                        const float (&alpha)[2], uint32_t v,
+                                        uint32_t v_full, uint32_t v_empty,
+                                        uint32_t ph, int t) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) ot[i] = 0.f;
+  sm90::mbar_wait(v_full, ph);
+  fence_regs(ot);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int kk = 0; kk < KK / 16; ++kk) fence_regs(pf[i][kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+    for (int pi = sum; pi >= 0; --pi) {
+      const int vj = sum - pi;
+      if (vj >= NT) continue;
+#pragma unroll
+      for (int kk = 0; kk < KK / 16; ++kk) {
+        wgmma_rs(ot, pf[pi][kk],
+                 sm90::smem_desc(v + uint32_t(vj * kVTerm) +
+                                 uint32_t(32 * kk)),
+                 1);
+      }
+    }
+  wgmma_commit_wait0();
+  fence_regs(ot);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int kk = 0; kk < KK / 16; ++kk) fence_regs(pf[i][kk]);
+  if (t == 0) sm90::mbar_arrive(v_empty);
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] = fmaf(o[i], alpha[(i / 2) % 2], ot[i]);
+}
+
 struct FoldArgs {
   float* part_m;  // [nsplit][lq_p]
   float* part_l;  // [nsplit][lq_p]
-  float* part_o;  // [nsplit][lq_p][KD]
+  float* part_o;  // [nsplit][lq_p][po_cols]
   int lq_p, lk, lk_p, tiles, nsplit;
   float scale;
-  // The carry and the output, for one split (nsplit == 1), which the fold
-  // merges itself: m, l, o as fold_combine_kernel takes them.
-  const float* m_in;
-  const float* l_in;
-  float* m_out;
-  float* l_out;
+  // The carry and the output, for one split of the resident-q fold
+  // (nsplit == 1), which merges them itself as fold_combine_kernel does.
+  float* m;
+  float* l;
   float* o;
   void* out;  // null, or [lq, d] in the input's dtype
   int lq, d;
+  // kStream: D / 64 chunks, G column groups, G OW partial columns.
+  int dblocks, groups, po_cols;
 };
 
-template <int NT, int KD>
+template <int NT, int KD, bool kStream>
 __global__ void __launch_bounds__(kFoldThreads, 1)
 fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                   const __grid_constant__ CUtensorMap k_map,
                   const __grid_constant__ CUtensorMap v_map, FoldArgs args) {
-  using F = Fold<NT, KD>;
+  using F = Fold<NT, KD, kStream>;
   constexpr int S = F::kStages, KK = F::kKeys, DB = F::kDB;
+  constexpr int SC = F::kChunkStages;
+  constexpr int SK = kStream ? SC : S;     // stages of k (chunks, kStream)
   constexpr int QB = F::kRows / 64;        // q's 64-row boxes
   constexpr int kKBox = KK * 128;          // one k box: KK rows x 64 bf16
   constexpr int kVTerm = F::kVRows * 128;  // one term of a v^T tile
@@ -422,8 +579,13 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   auto k_s = [&](int s) {
     return base + uint32_t(F::kQBytes + s * 2 * F::kTileBytes);
   };
-  auto v_s = [&](int s) { return k_s(s) + uint32_t(F::kTileBytes); };
-  const uint32_t x_at = uint32_t(F::kQBytes + S * 2 * F::kTileBytes);
+  // kStream: stage s of the chunk ring, q's terms then k's.
+  auto c_s = [&](int s) { return base + uint32_t(s * F::kChunkBytes); };
+  auto v_s = [&](int s) {
+    return kStream ? base + uint32_t(SC * F::kChunkBytes + s * F::kTileBytes)
+                   : k_s(s) + uint32_t(F::kTileBytes);
+  };
+  const uint32_t x_at = uint32_t(F::kRingBytes);
   // The exchange, thread t's word i at [i][t]: [2][KK / 2][128] for the
   // consumers' halves of s (consumer c's at [c]), [kPWords][128] for p.
   float* const xs = reinterpret_cast<float*>(
@@ -431,11 +593,16 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t bars = base + x_at + uint32_t(F::kXBytes);
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + uint32_t(8 * (1 + s)); };
-  auto k_empty = [&](int s) { return bars + uint32_t(8 * (1 + S + s)); };
-  auto v_full = [&](int s) { return bars + uint32_t(8 * (1 + 2 * S + s)); };
-  auto v_empty = [&](int s) { return bars + uint32_t(8 * (1 + 3 * S + s)); };
+  auto k_empty = [&](int s) { return bars + uint32_t(8 * (1 + SK + s)); };
+  auto v_full = [&](int s) { return bars + uint32_t(8 * (1 + 2 * SK + s)); };
+  auto v_empty = [&](int s) {
+    return bars + uint32_t(8 * (1 + 2 * SK + S + s));
+  };
   const int tid = threadIdx.x, wg = tid / 128;
-  const int row0 = int(blockIdx.x) * F::kRows;
+  // kStream: this block's column group, the fastest index of grid x.
+  const int groups = kStream ? args.groups : 1;
+  const int g = int(blockIdx.x) % groups;
+  const int row0 = int(blockIdx.x) / groups * F::kRows;
   const int split = int(blockIdx.y);
   const int t0 = int((long long)split * args.tiles / args.nsplit);
   const int t1 = int((long long)(split + 1) * args.tiles / args.nsplit);
@@ -443,10 +610,13 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (tid == 0) {
     sm90::mbar_init(q_full, 1);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < SK; ++s) {
       sm90::mbar_init(k_full(s), 1);
-      sm90::mbar_init(v_full(s), 1);
       sm90::mbar_init(k_empty(s), F::kShareP ? 1 : 2);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(v_full(s), 1);
       sm90::mbar_init(v_empty(s), 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -454,7 +624,8 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (wg == 0) {
-    // The producer: one thread loads q once, then keeps both rings full.
+    // The producer: one thread keeps the rings full (and, with resident
+    // q, loads q once first).
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == 0) {
       asm volatile("prefetch.tensormap [%0];\n"
@@ -463,36 +634,58 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    :: "l"(reinterpret_cast<uint64_t>(&k_map)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n"
                    :: "l"(reinterpret_cast<uint64_t>(&v_map)) : "memory");
-      sm90::mbar_expect_tx(q_full, F::kQBytes);
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int c = 0; c < QB; ++c)
-#pragma unroll
-          for (int b = 0; b < DB; ++b) {
-            sm90::tma_load(q_s + uint32_t(((t * QB + c) * DB + b) * kBox),
-                           &q_map, q_full, 64 * b,
-                           t * args.lq_p + row0 + 64 * c);
-          }
-      int s = 0;
-      uint32_t ph = 0;
-      for (int j = t0; j < t1; ++j) {
-        const int key0 = j * KK;
-        sm90::mbar_wait(k_empty(s), ph ^ 1);
-        sm90::mbar_expect_tx(k_full(s), F::kTileBytes);
+      if constexpr (!kStream) {
+        sm90::mbar_expect_tx(q_full, F::kQBytes);
 #pragma unroll
         for (int t = 0; t < NT; ++t)
 #pragma unroll
-          for (int b = 0; b < DB; ++b) {
-            sm90::tma_load(k_s(s) + uint32_t((t * DB + b) * kKBox), &k_map,
-                           k_full(s), 64 * b, t * args.lk_p + key0);
+          for (int c = 0; c < QB; ++c)
+#pragma unroll
+            for (int b = 0; b < DB; ++b) {
+              sm90::tma_load(q_s + uint32_t(((t * QB + c) * DB + b) * kBox),
+                             &q_map, q_full, 64 * b,
+                             t * args.lq_p + row0 + 64 * c);
+            }
+      }
+      int s = 0, cs = 0;
+      uint32_t ph = 0, cph = 0;
+      for (int j = t0; j < t1; ++j) {
+        const int key0 = j * KK;
+        if constexpr (kStream) {
+          // q's and k's terms, chunk after chunk of the head dim.
+          for (int b = 0; b < args.dblocks; ++b) {
+            sm90::mbar_wait(k_empty(cs), cph ^ 1);
+            sm90::mbar_expect_tx(k_full(cs), F::kChunkBytes);
+#pragma unroll
+            for (int t = 0; t < NT; ++t) {
+              sm90::tma_load(c_s(cs) + uint32_t(t * kBox), &q_map, k_full(cs),
+                             64 * b, t * args.lq_p + row0);
+              sm90::tma_load(c_s(cs) + uint32_t(NT * kBox + t * kKBox),
+                             &k_map, k_full(cs), 64 * b,
+                             t * args.lk_p + key0);
+            }
+            if (++cs == SC) {
+              cs = 0;
+              cph ^= 1;
+            }
           }
+        } else {
+          sm90::mbar_wait(k_empty(s), ph ^ 1);
+          sm90::mbar_expect_tx(k_full(s), F::kTileBytes);
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int b = 0; b < DB; ++b) {
+              sm90::tma_load(k_s(s) + uint32_t((t * DB + b) * kKBox), &k_map,
+                             k_full(s), 64 * b, t * args.lk_p + key0);
+            }
+        }
         sm90::mbar_wait(v_empty(s), ph ^ 1);
         sm90::mbar_expect_tx(v_full(s), F::kTileBytes);
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
           sm90::tma_load(v_s(s) + uint32_t(t * kVTerm), &v_map, v_full(s), 0,
-                         (t * args.tiles + j) * F::kVRows);
+                         ((g * NT + t) * args.tiles + j) * F::kVRows);
         }
         if (++s == S) {
           s = 0;
@@ -503,7 +696,8 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  // A consumer: query rows row0 + 64 qc .. + 63, o columns oc0 .. + OC - 1.
+  // A consumer: query rows row0 + 64 qc .. + 63, o columns oc0 .. + OC - 1
+  // (of the block's group, kStream).
   // Thread t (warp w, lane l) holds rows 16 w + l / 4 and that + 8 of
   // them, and in s columns (keys) 8 j + 2 (l % 4) and that + 1, j = 0 ..
   // KK / 8 - 1 (wgmma's layout); in o the same with columns for keys.
@@ -521,15 +715,15 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < OC / 2; ++i) o[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   // One split: the carry's m and l for this thread's rows, read before
-  // any thread writes them (they may alias m_out and l_out).
+  // any thread writes them.
   const int r0 = row0 + 64 * qc + 16 * w + l / 4;
   float m_in[2] = {0.f, 0.f}, l_in[2] = {0.f, 0.f};
-  if (args.nsplit == 1) {
+  if (!kStream && args.nsplit == 1) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (r0 + 8 * r < args.lq) {
-        m_in[r] = args.m_in[r0 + 8 * r];
-        l_in[r] = args.l_in[r0 + 8 * r];
+        m_in[r] = args.m[r0 + 8 * r];
+        l_in[r] = args.l[r0 + 8 * r];
       }
     }
   }
@@ -538,7 +732,7 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t s_half = F::kSplitS ? uint32_t(32 * c) : 0u;
   const uint64_t q_desc =
       sm90::smem_desc(q_s + uint32_t(qc * DB * kBox) + s_half);
-  sm90::mbar_wait(q_full, 0);
+  if (!kStream) sm90::mbar_wait(q_full, 0);
   // KD = 128: the warpgroups take turns to issue s (warpgroup 0 first),
   // so one's softmax runs while the other's products do (FlashAttention-3's
   // ping-pong). Each passes the turn once per tile; warpgroup 0 takes the
@@ -546,27 +740,55 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // of p (kShareP) is matched the same way: the buffer starts empty.
   if (!F::kWide && c == 1) turn_pass(c);
   if (F::kShareP && c == 1) nb_arrive<4>();
-  int s = 0;
-  uint32_t ph = 0;
+  int s = 0, cs = 0;
+  uint32_t ph = 0, cph = 0;
+  float alpha[2];
   for (int j = t0; j < t1; ++j) {
     const int key0 = j * KK;
-    float alpha[2];
     if (!F::kShareP || c == 0) {
       // s = q k^T over the cross terms, smallest first.
 #pragma unroll
       for (int i = 0; i < KK / 2; ++i) sc[i] = 0.f;
-      if (!F::kWide) turn_sync(c);
-      sm90::mbar_wait(k_full(s), ph);
-      fence_regs(sc);
-      wgmma_fence();
-      constexpr int QT = QB * DB * kBox, KT = DB * kKBox;
-      s_products<NT, KD, F::kSplitS ? 2 : 1, QT, KT, kKBox>(
-          sc, q_desc, sm90::smem_desc(k_s(s) + s_half));
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      if (!F::kWide) turn_pass(c);
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_regs(sc);
-      if (t == 0) sm90::mbar_arrive(k_empty(s));
+      if constexpr (kStream) {
+        // Chunk after chunk of the head dim; a chunk's stage goes back
+        // once the next chunk's products are issued.
+        constexpr int QT = kBox, CK = NT * kBox;
+        int prev = 0;
+        for (int b = 0; b < args.dblocks; ++b) {
+          sm90::mbar_wait(k_full(cs), cph);
+          fence_regs(sc);
+          wgmma_fence();
+          s_products<NT, 64, F::kSplitS ? 2 : 1, QT, kKBox, kKBox>(
+              sc, sm90::smem_desc(c_s(cs) + s_half),
+              sm90::smem_desc(c_s(cs) + uint32_t(CK) + s_half));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          if (b > 0) {
+            asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+            if (t == 0) sm90::mbar_arrive(k_empty(prev));
+          }
+          prev = cs;
+          if (++cs == SC) {
+            cs = 0;
+            cph ^= 1;
+          }
+        }
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(sc);
+        if (t == 0) sm90::mbar_arrive(k_empty(prev));
+      } else {
+        if (!F::kWide) turn_sync(c);
+        sm90::mbar_wait(k_full(s), ph);
+        fence_regs(sc);
+        wgmma_fence();
+        constexpr int QT = QB * DB * kBox, KT = DB * kKBox;
+        s_products<NT, KD, F::kSplitS ? 2 : 1, QT, KT, kKBox>(
+            sc, q_desc, sm90::smem_desc(k_s(s) + s_half));
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (!F::kWide) turn_pass(c);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_regs(sc);
+        if (t == 0) sm90::mbar_arrive(k_empty(s));
+      }
       if constexpr (F::kSplitS) {
         // s = this half + the other's, the same sum in both (a + b == b +
         // a). The first barrier: the other has read what this one wrote.
@@ -581,45 +803,8 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           sc[i] += xs[((1 - c) * (KK / 2) + i) * 128 + t];
         }
       }
-
-      // The online softmax on the fragments: sc[4 j + e] is row r = e / 2
-      // (r0 or r0 + 8), key 8 j + 2 (l % 4) + e % 2.
-      const bool tail = key0 + KK > args.lk;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < KK / 2; ++i) {
-        const int key = key0 + 8 * (i / 4) + 2 * (l % 4) + (i % 2);
-        float v = sc[i] * args.scale;
-        if (tail && key >= args.lk) v = -INFINITY;
-        sc[i] = v;
-        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], v);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_run[r], mx[r]);
-        alpha[r] = expf(m_run[r] - m_new);
-        m_run[r] = m_new;
-        l_run[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int i = 0; i < KK / 2; i += 2) {
-        uint32_t hi[2], mid[2], lo[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = (i / 2) % 2;
-          const float p = expf(sc[i + h] - m_run[r]);
-          l_run[r] += p;
-          split3_bits(p, hi[h], mid[h], lo[h]);
-        }
-        // Keys 16 kk .. 16 kk + 15 are A fragment kk: words (row r0, keys
-        // +0/1), (r0 + 8, +0/1), (r0, +8/9), (r0 + 8, +8/9).
-        const int kk = i / 8, word = (i % 8) / 2;
-        pf[0][kk][word] = pack_hi16(hi[0], hi[1]);
-        pf[1][kk][word] = pack_hi16(mid[0], mid[1]);
-        pf[2][kk][word] = pack_hi16(lo[0], lo[1]);
-      }
+      softmax_tile<KK>(sc, key0, args.lk, args.scale, l, m_run, l_run,
+                       alpha, pf);
       if constexpr (F::kShareP) {
         // Hand p's terms and the rescale to the other consumer, whose
         // thread t holds the same rows and keys, once it has read the last.
@@ -645,42 +830,8 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       alpha[1] = __uint_as_float(pw[(F::kPWords - 1) * 128 + t]);
       nb_arrive<4>();
     }
-
-    // o_tile = p v over the cross terms, smallest first; A from registers.
-#pragma unroll
-    for (int i = 0; i < OC / 2; ++i) ot[i] = 0.f;
-    sm90::mbar_wait(v_full(s), ph);
-    fence_regs(ot);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int kk = 0; kk < KK / 16; ++kk) fence_regs(pf[i][kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int sum = 2; sum >= 0; --sum)
-#pragma unroll
-      for (int pi = sum; pi >= 0; --pi) {
-        const int vj = sum - pi;
-        if (vj >= NT) continue;
-#pragma unroll
-        for (int kk = 0; kk < KK / 16; ++kk) {
-          wgmma_rs(ot, pf[pi][kk],
-                   sm90::smem_desc(v_s(s) + uint32_t(vj * kVTerm) + v_cols +
-                                   uint32_t(32 * kk)),
-                   1);
-        }
-      }
-    wgmma_commit_wait0();
-    fence_regs(ot);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int kk = 0; kk < KK / 16; ++kk) fence_regs(pf[i][kk]);
-    if (t == 0) sm90::mbar_arrive(v_empty(s));
-#pragma unroll
-    for (int i = 0; i < OC / 2; ++i) {
-      o[i] = fmaf(o[i], alpha[(i / 2) % 2], ot[i]);
-    }
+    pv_tile<NT, KK, OC / 2, kVTerm>(o, ot, pf, alpha, v_s(s) + v_cols,
+                                    v_full(s), v_empty(s), ph, t);
     if (++s == S) {
       s = 0;
       ph ^= 1;
@@ -717,7 +868,7 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
-  if (args.nsplit == 1) {
+  if (!kStream && args.nsplit == 1) {
     // The merge with the carry, as fold_combine_kernel makes it.
     using TO = typename std::conditional<NT == 3, float, __nv_bfloat16>::type;
     TO* const out = static_cast<TO*>(args.out);
@@ -746,26 +897,28 @@ fold_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           }
         }
       if (l % 4 == 0 && (!F::kWide || c == 0)) {
-        args.m_out[row] = mx;
-        args.l_out[row] = ln;
+        args.m[row] = mx;
+        args.l[row] = ln;
       }
     }
     return;
   }
+  // The partials: every group's m and l are the same, group 0 writes them.
   const long long rows = (long long)split * args.lq_p;
-  if (l % 4 == 0 && (!F::kWide || c == 0)) {
+  if (l % 4 == 0 && (!F::kWide || c == 0) && g == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       args.part_m[rows + r0 + 8 * r] = m_run[r];
       args.part_l[rows + r0 + 8 * r] = l_run[r];
     }
   }
-  float* po = args.part_o + (rows + r0) * KD + oc0 + 2 * (l % 4);
+  const int pc = kStream ? args.po_cols : KD;
+  float* po = args.part_o + (rows + r0) * pc + g * KD + oc0 + 2 * (l % 4);
 #pragma unroll
   for (int jj = 0; jj < OC / 8; ++jj) {
     *reinterpret_cast<float2*>(po + 8 * jj) =
         make_float2(o[4 * jj], o[4 * jj + 1]);
-    *reinterpret_cast<float2*>(po + 8 * KD + 8 * jj) =
+    *reinterpret_cast<float2*>(po + 8 * pc + 8 * jj) =
         make_float2(o[4 * jj + 2], o[4 * jj + 3]);
   }
 }
@@ -792,26 +945,29 @@ __device__ __forceinline__ uint4 pack8(const float (&t)[8][3], int i) {
 // Where (column col, key) of v lies in one term of vt: tile key / kKeys,
 // row col % kVRows, and in that row the keys of column col's kVRows-wide
 // group (see the top of the file).
-template <int NT, int KD>
+template <int NT, int KD, bool kStream>
 __device__ __forceinline__ long long vt_offset(int col, long long key) {
-  using F = Fold<NT, KD>;
+  using F = Fold<NT, KD, kStream>;
   return ((key / F::kKeys) * F::kVRows + col % F::kVRows) * 64 +
          (col / F::kVRows) * F::kKeys + key % F::kKeys;
 }
 
 // Blocks [0, row_blocks) write qs and ks (grid-stride over chunks of 8
-// columns of a row); the rest write vt, one 64 keys x 64 columns tile of
-// v each, through shared memory (read along d, written along keys).
-template <typename T, int NT, int KD>
+// columns of a row, rows kd wide: KD, or D for kStream); the rest write
+// vt, one 64 keys x 64 columns tile of v each, through shared memory (read
+// along d, written along keys), each term of each KD-wide column group
+// (one group below kStream) after the other.
+template <typename T, int NT, int KD, bool kStream>
 __global__ void __launch_bounds__(kPackThreads)
 fold_pack_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, __nv_bfloat16* __restrict__ qs,
                  __nv_bfloat16* __restrict__ ks,
                  __nv_bfloat16* __restrict__ vt, int lq, int lk, int d,
-                 long long lq_p, long long lk_p, int row_blocks) {
+                 long long lq_p, long long lk_p, int row_blocks, int kd) {
   const int tid = threadIdx.x;
   if (int(blockIdx.x) < row_blocks) {
-    const int per_row = KD / 8;
+    const int width = kStream ? kd : KD;
+    const int per_row = width / 8;
     const long long chunks = (lq_p + lk_p) * per_row;
     for (long long ch = blockIdx.x * (long long)kPackThreads + tid;
          ch < chunks; ch += (long long)row_blocks * kPackThreads) {
@@ -827,8 +983,8 @@ fold_pack_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float a = rr < n && c0 + e < d ? to_f32(src[c0 + e]) : 0.f;
         terms<NT>(a, t[e]);
       }
-      __nv_bfloat16* dst = (is_q ? qs : ks) + rr * KD + c0;
-      const long long term_stride = (is_q ? lq_p : lk_p) * KD;
+      __nv_bfloat16* dst = (is_q ? qs : ks) + rr * width + c0;
+      const long long term_stride = (is_q ? lq_p : lk_p) * width;
 #pragma unroll
       for (int i = 0; i < NT; ++i) {
         *reinterpret_cast<uint4*>(dst + i * term_stride) = pack8(t, i);
@@ -850,6 +1006,10 @@ fold_pack_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      : 0.f;
   }
   __syncthreads();
+  // c0's column group and its first column in it.
+  const int grp = kStream ? c0 / KD : 0;
+  const int gc0 = kStream ? c0 - grp * KD : c0;
+  __nv_bfloat16* const vg = vt + grp * NT * lk_p * KD;
 #pragma unroll
   for (int h = 0; h < 64 * 64 / 8 / kPackThreads; ++h) {
     const int qd = tid + h * kPackThreads;
@@ -858,69 +1018,77 @@ fold_pack_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float t[8][3];
 #pragma unroll
     for (int e = 0; e < 8; ++e) terms<NT>(tile[kc + e][r], t[e]);
-    const long long at = vt_offset<NT, KD>(c0 + r, key0 + kc);
+    const long long at = vt_offset<NT, KD, kStream>(gc0 + r, key0 + kc);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
-      *reinterpret_cast<uint4*>(vt + i * lk_p * KD + at) = pack8(t, i);
+      *reinterpret_cast<uint4*>(vg + i * lk_p * KD + at) = pack8(t, i);
     }
   }
 }
 
-// One warp per row, lane j on columns j, j + 32, ...: every lane reads
-// the carry's m and l before lane 0 writes them, so they may alias m_out
-// and l_out.
-template <typename TO, int KD>
+// One warp per row, lane j on columns j, j + 32, ..., KD columns a pass:
+// each split's (m, l, o), o's rows po_cols wide, merged with the carry.
+// With q resident (!kLoop) d <= KD = po_cols and one pass covers the row;
+// past it (kLoop) the passes walk the row. Every lane reads the carry's m
+// and l before lane 0 writes them, so the carry is updated in place.
+template <typename TO, int KD, bool kLoop>
 __global__ void __launch_bounds__(256)
 fold_combine_kernel(const float* __restrict__ part_m,
                     const float* __restrict__ part_l,
                     const float* __restrict__ part_o, int nsplit,
-                    long long lq_p, const float* m_in,
-                    const float* l_in, float* m_out, float* l_out,
+                    long long lq_p, int po_cols, float* m, float* l,
                     float* o, TO* out, int lq, int d) {
   constexpr int E = KD / 32;
   const int row = int(blockIdx.x) * 8 + int(threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (row >= lq) return;
-  const float mi = m_in[row], li = l_in[row];
+  const float mi = m[row], li = l[row];
   float mx = mi;
   for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_m[s * lq_p + row]);
   const float a_in = expf(mi - mx);  // 0 for the first fold's -inf
-  float ln = li * a_in, acc[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int col = 32 * e + lane;
-    acc[e] = col < d ? o[(long long)row * d + col] * a_in : 0.f;
-  }
-  for (int s = 0; s < nsplit; ++s) {
-    const long long pr = s * lq_p + row;
-    const float a = expf(part_m[pr] - mx);
-    ln += part_l[pr] * a;
+  float ln = li * a_in;
+  float* const orow = o + (long long)row * d;
+  for (int c0 = 0; c0 < (kLoop ? d : 1); c0 += KD) {
+    float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      acc[e] += part_o[pr * KD + 32 * e + lane] * a;
+      const int col = c0 + 32 * e + lane;
+      acc[e] = col < d ? orow[col] * a_in : 0.f;
+    }
+    for (int s = 0; s < nsplit; ++s) {
+      const long long pr = s * lq_p + row;
+      const float a = expf(part_m[pr] - mx);
+      if (c0 == 0) ln += part_l[pr] * a;
+      const float* const prow = part_o + pr * po_cols + c0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        // q resident: the partials' KD columns lie in every row.
+        if (!kLoop || c0 + 32 * e + lane < d) acc[e] += prow[32 * e + lane] * a;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int col = c0 + 32 * e + lane;
+      if (col >= d) continue;
+      if (out != nullptr) {
+        store_out(out + (long long)row * d + col, acc[e] / ln);
+      } else {
+        orow[col] = acc[e];
+      }
     }
   }
   __syncwarp();
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int col = 32 * e + lane;
-    if (col >= d) continue;
-    if (out != nullptr) {
-      store_out(out + (long long)row * d + col, acc[e] / ln);
-    } else {
-      o[(long long)row * d + col] = acc[e];
-    }
-  }
   if (lane == 0) {
-    m_out[row] = mx;
-    l_out[row] = ln;
+    m[row] = mx;
+    l[row] = ln;
   }
 }
 
 // The scratch of one call: split operands, then the splits' partials,
-// each 1024-byte aligned.
+// each 1024-byte aligned. kd: the operands' row width; groups: the column
+// groups (1 below kStream).
 struct Layout {
-  int nsplit, tiles, row_blocks;
+  int nsplit, tiles, row_blocks, kd, groups;
   long long lq_p, lk_p, qs, ks, vt, pm, pl, po, bytes;
 };
 
@@ -937,36 +1105,38 @@ int sm_count() {
   return n;
 }
 
-template <int NT, int KD>
-Layout layout(int lq, int lk) {
-  using F = Fold<NT, KD>;
+template <int NT, int KD, bool kStream>
+Layout layout(int lq, int lk, int d) {
+  using F = Fold<NT, KD, kStream>;
   Layout L;
+  L.kd = kStream ? padded_d(d) : KD;
+  L.groups = kStream ? (L.kd + KD - 1) / KD : 1;
   L.lq_p = (lq + F::kRows - 1) / F::kRows * F::kRows;
   L.lk_p = (lk + F::kKeys - 1) / F::kKeys * F::kKeys;
   L.row_blocks = int(L.lq_p / F::kRows);
   L.tiles = int(L.lk_p / F::kKeys);
   // Key splits fill the SMs; each split holds at least one tile.
-  const int want = sm_count() / L.row_blocks;
+  const int want = sm_count() / (L.row_blocks * L.groups);
   L.nsplit = want < 1 ? 1 : (want > L.tiles ? L.tiles : want);
   long long at = 0;
-  L.qs = at; at = align1k(at + NT * L.lq_p * KD * 2);
-  L.ks = at; at = align1k(at + NT * L.lk_p * KD * 2);
-  L.vt = at; at = align1k(at + NT * L.lk_p * KD * 2);
-  const long long parts = L.nsplit > 1 ? L.nsplit : 0;  // one merges itself
+  L.qs = at; at = align1k(at + NT * L.lq_p * L.kd * 2);
+  L.ks = at; at = align1k(at + NT * L.lk_p * L.kd * 2);
+  L.vt = at; at = align1k(at + L.groups * NT * L.lk_p * KD * 2);
+  // One split of resident q merges itself; kStream always writes partials.
+  const long long parts = kStream || L.nsplit > 1 ? L.nsplit : 0;
   L.pm = at; at = align1k(at + parts * L.lq_p * 4);
   L.pl = at; at = align1k(at + parts * L.lq_p * 4);
-  L.po = at; at = align1k(at + parts * L.lq_p * KD * 4);
+  L.po = at; at = align1k(at + parts * L.lq_p * L.groups * KD * 4);
   L.bytes = at;
   return L;
 }
 
-template <typename T, int NT, int KD>
-int launch_wgmma(const void* q, const void* k, const void* v, const float* m,
-                 const float* l, float* m_out, float* l_out, float* o,
-                 void* out, uint8_t* scratch, int lq, int lk, int d,
-                 float scale, cudaStream_t stream) {
-  using F = Fold<NT, KD>;
-  const Layout L = layout<NT, KD>(lq, lk);
+template <typename T, int NT, int KD, bool kStream>
+int launch_wgmma(const void* q, const void* k, const void* v, float* m,
+                 float* l, float* o, void* out, uint8_t* scratch, int lq,
+                 int lk, int d, float scale, cudaStream_t stream) {
+  using F = Fold<NT, KD, kStream>;
+  const Layout L = layout<NT, KD, kStream>(lq, lk, d);
   auto* qs = reinterpret_cast<__nv_bfloat16*>(scratch + L.qs);
   auto* ks = reinterpret_cast<__nv_bfloat16*>(scratch + L.ks);
   auto* vt = reinterpret_cast<__nv_bfloat16*>(scratch + L.vt);
@@ -976,62 +1146,75 @@ int launch_wgmma(const void* q, const void* k, const void* v, const float* m,
   const bool direct = NT == 1 && d % 8 == 0 &&
                       reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(k) % 16 == 0;
-  const long long chunks = (L.lq_p + L.lk_p) * (KD / 8);
+  const long long chunks = (L.lq_p + L.lk_p) * (L.kd / 8);
   long long row_blocks = (chunks + kPackThreads - 1) / kPackThreads;
   if (row_blocks > 1024) row_blocks = 1024;  // grid-stride beyond
   if (direct) row_blocks = 0;
-  const long long vt_blocks = (L.lk_p + 63) / 64 * (KD / 64);
-  fold_pack_kernel<T, NT, KD>
+  const long long vt_blocks = (L.lk_p + 63) / 64 * (L.groups * KD / 64);
+  fold_pack_kernel<T, NT, KD, kStream>
       <<<unsigned(row_blocks + vt_blocks), kPackThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), qs, ks, vt, lq, lk, d, L.lq_p, L.lk_p,
-          int(row_blocks));
+          int(row_blocks), L.kd);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   CUtensorMap q_map, k_map, v_map;
   e = direct ? sm90::encode_kmajor_bf16(&q_map, q, lq, d, 64)
-             : sm90::encode_kmajor_bf16(&q_map, qs, NT * L.lq_p, KD, 64);
+             : sm90::encode_kmajor_bf16(&q_map, qs, NT * L.lq_p, L.kd, 64);
   if (e == cudaSuccess) {
-    e = direct
-            ? sm90::encode_kmajor_bf16(&k_map, k, lk, d, F::kKeys)
-            : sm90::encode_kmajor_bf16(&k_map, ks, NT * L.lk_p, KD, F::kKeys);
+    e = direct ? sm90::encode_kmajor_bf16(&k_map, k, lk, d, F::kKeys)
+               : sm90::encode_kmajor_bf16(&k_map, ks, NT * L.lk_p, L.kd,
+                                          F::kKeys);
   }
   if (e == cudaSuccess) {
-    e = sm90::encode_kmajor_bf16(&v_map, vt,
-                                 (long long)NT * L.tiles * F::kVRows, 64,
-                                 F::kVRows);
+    e = sm90::encode_kmajor_bf16(
+        &v_map, vt, (long long)L.groups * NT * L.tiles * F::kVRows, 64,
+        F::kVRows);
   }
   if (e != cudaSuccess) return int(e);
-  e = cudaFuncSetAttribute(fold_wgmma_kernel<NT, KD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto* kernel = fold_wgmma_kernel<NT, KD, kStream>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            F::kSmem);
   if (e != cudaSuccess) return int(e);
   FoldArgs args{reinterpret_cast<float*>(scratch + L.pm),
                 reinterpret_cast<float*>(scratch + L.pl),
                 reinterpret_cast<float*>(scratch + L.po),
                 int(L.lq_p), lk, int(L.lk_p), L.tiles, L.nsplit, scale,
-                m, l, m_out, l_out, o, out, lq, d};
-  fold_wgmma_kernel<NT, KD>
-      <<<dim3(unsigned(L.row_blocks), unsigned(L.nsplit)), kFoldThreads,
-         F::kSmem, stream>>>(q_map, k_map, v_map, args);
+                m, l, o, out, lq, d, L.kd / 64, L.groups, L.groups * KD};
+  const dim3 grid(unsigned(L.row_blocks * L.groups), unsigned(L.nsplit));
+  kernel<<<grid, kFoldThreads, F::kSmem, stream>>>(q_map, k_map, v_map, args);
   e = cudaGetLastError();
-  if (e != cudaSuccess || L.nsplit == 1) return int(e);
-  fold_combine_kernel<T, KD><<<unsigned((lq + 7) / 8), 256, 0, stream>>>(
-      args.part_m, args.part_l, args.part_o, L.nsplit, L.lq_p, m, l,
-      m_out, l_out, o, static_cast<T*>(out), lq, d);
+  if (e != cudaSuccess || (!kStream && L.nsplit == 1)) return int(e);
+  // The merge: o's padded width in one pass with q resident, passes of 128
+  // columns past it.
+  fold_combine_kernel<T, kStream ? 128 : KD, kStream>
+      <<<unsigned((lq + 7) / 8), 256, 0, stream>>>(
+          args.part_m, args.part_l, args.part_o, L.nsplit, L.lq_p,
+          args.po_cols, m, l, o, static_cast<T*>(out), lq, d);
   return int(cudaGetLastError());
 }
 
-// The instantiation for (d, dtype): its input type, terms and width.
-template <typename T, int NT, int KD>
+// The instantiation for (d, dtype): its input type, terms and width, and
+// whether it streams q (d > kMaxD; the width is then a column group's).
+template <typename T, int NT, int KD, bool kStream = false>
 struct Inst {
   using Type = T;
   static constexpr int kNT = NT, kKD = KD;
+  static constexpr bool kStreamed = kStream;
 };
 
-// fn(Inst<...>{}) for the instantiation that takes d <= kMaxD and dtype.
+// fn(Inst<...>{}) for the instantiation that takes d and dtype.
 template <class Fn>
 auto with_inst(int d, int dtype, Fn&& fn) {
+  if (d > kMaxD) {
+    const bool w192 = group_width(d) == 192;
+    if (dtype == 0) {
+      if (w192) return fn(Inst<float, 3, 192, true>{});
+      return fn(Inst<float, 3, 256, true>{});
+    }
+    if (w192) return fn(Inst<__nv_bfloat16, 1, 192, true>{});
+    return fn(Inst<__nv_bfloat16, 1, 256, true>{});
+  }
   const int kd = padded_d(d);
   if (dtype == 0) {
     if (kd == 128) return fn(Inst<float, 3, 128>{});
@@ -1042,240 +1225,35 @@ auto with_inst(int d, int dtype, Fn&& fn) {
   if (kd == 192) return fn(Inst<__nv_bfloat16, 1, 192>{});
   return fn(Inst<__nv_bfloat16, 1, 256>{});
 }
-
-// ---- d > 256: the chunked f32 FMA kernel ----
-
-constexpr int kThreads = 256;
-constexpr int kBQ = 64, kBK = 64, kChunk = 128;
-constexpr int kLdq = kBQ + 4, kLdk = kBK + 4;  // padded rows, 16-byte aligned
-constexpr int kChunkSmem =
-    (kChunk * kLdq + kChunk * kLdk + kBK * kChunk + kBK * kLdq) *
-    int(sizeof(float));
-
-// Loads rows [r0g, r0g + rows) of x, columns [c0g, c0g + kChunk),
-// transposed into dst [kChunk][ld], zero past the rows' end n and the
-// columns' end d.
-template <int ROWS, typename T>
-__device__ __forceinline__ void load_t(float* dst, int ld, const T* x,
-                                       int64_t r0g, int64_t n, int c0g,
-                                       int d, int tid) {
-  for (int i = tid; i < ROWS * kChunk; i += kThreads) {
-    const int r = i / kChunk, c = i % kChunk;
-    dst[c * ld + r] = (r0g + r < n && c0g + c < d)
-                          ? to_f32(x[(r0g + r) * d + c0g + c])
-                          : 0.f;
-  }
-}
-
-// s[4][4] += this thread's patch of Qt^T Kt over one chunk.
-__device__ __forceinline__ void add_scores(float (&s)[4][4], const float* Qt,
-                                           const float* Kt, int r0, int tx) {
-#pragma unroll 8
-  for (int c = 0; c < kChunk; ++c) {
-    const float4 qa = *reinterpret_cast<const float4*>(&Qt[c * kLdq + r0]);
-    const float4 kb = *reinterpret_cast<const float4*>(&Kt[c * kLdk + tx * 4]);
-    const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-    const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        s[ii][jj] = fmaf(qv[ii], kv[jj], s[ii][jj]);
-  }
-}
-
-// One block per 64 query rows and per 128 columns of o (blockIdx.y); with
-// out set, it writes o' / l' there in T instead of o'.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ring_fold_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* m_in,
-                 const float* l_in, float* m_out, float* l_out,
-                 float* __restrict__ o_io, T* out, int lq, int lk, int d,
-                 float scale) {
-  constexpr int CPT = kChunk / 16;  // o columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;                  // [kChunk][kLdq]  q chunk transposed
-  float* Kt = Qt + kChunk * kLdq;    // [kChunk][kLdk]  k chunk transposed
-  float* Vs = Kt + kChunk * kLdk;    // [kBK][kChunk]   v tile, this block's
-  float* Pt = Vs + kBK * kChunk;     // [kBK][kLdq]     p transposed
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int r0 = ty * 4;    // this thread's 4 query rows (local)
-  const int c0 = tx * CPT;  // this thread's o columns (in the chunk)
-  const int cb = int(blockIdx.y) * kChunk;  // first o column
-  const int64_t q0 = int64_t(blockIdx.x) * kBQ;
-
-  float mrow[4], lrow[4], acc[4][CPT];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int64_t r = q0 + r0 + ii;
-    const bool ok = r < lq;
-    mrow[ii] = ok ? m_in[r] : -INFINITY;
-    lrow[ii] = ok ? l_in[r] : 0.f;
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) {
-      const int c = cb + c0 + e;
-      acc[ii][e] = (ok && c < d) ? o_io[r * d + c] : 0.f;
-    }
-  }
-
-  for (int k0 = 0; k0 < lk; k0 += kBK) {
-    __syncthreads();  // the last tile's Qt, Kt, Vs, Pt all read
-    float s[4][4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
-    for (int i = tid; i < kBK * kChunk; i += kThreads) {
-      const int j = i / kChunk, c = i % kChunk;
-      Vs[j * kChunk + c] = (k0 + j < lk && cb + c < d)
-                               ? to_f32(v[int64_t(k0 + j) * d + cb + c])
-                               : 0.f;
-    }
-    for (int dc = 0; dc < d; dc += kChunk) {
-      if (dc > 0) __syncthreads();  // the last chunk's Qt and Kt read
-      load_t<kBQ>(Qt, kLdq, q, q0, lq, dc, d, tid);
-      load_t<kBK>(Kt, kLdk, k, k0, lk, dc, d, tid);
-      __syncthreads();
-      add_scores(s, Qt, Kt, r0, tx);
-    }
-
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[ii][jj] = (k0 + tx * 4 + jj < lk) ? s[ii][jj] * scale : -INFINITY;
-        mx = fmaxf(mx, s[ii][jj]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_new = fmaxf(mrow[ii], mx);
-      const float alpha = expf(mrow[ii] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        s[ii][jj] = expf(s[ii][jj] - m_new);
-        sum += s[ii][jj];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      lrow[ii] = lrow[ii] * alpha + sum;
-      mrow[ii] = m_new;
-#pragma unroll
-      for (int e = 0; e < CPT; ++e) acc[ii][e] *= alpha;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      *reinterpret_cast<float4*>(&Pt[(tx * 4 + jj) * kLdq + r0]) =
-          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 pa = *reinterpret_cast<const float4*>(&Pt[j * kLdq + r0]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      float vb[CPT];
-#pragma unroll
-      for (int e = 0; e < CPT; e += 4) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&Vs[j * kChunk + c0 + e]);
-        vb[e] = t.x; vb[e + 1] = t.y; vb[e + 2] = t.z; vb[e + 3] = t.w;
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int e = 0; e < CPT; ++e)
-          acc[ii][e] = fmaf(pv[ii], vb[e], acc[ii][e]);
-    }
-  }
-
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int64_t r = q0 + r0 + ii;
-    if (r >= lq) continue;
-    if (tx == 0 && blockIdx.y == 0) {
-      m_out[r] = mrow[ii];
-      l_out[r] = lrow[ii];
-    }
-#pragma unroll
-    for (int e = 0; e < CPT; ++e) {
-      const int c = cb + c0 + e;
-      if (c >= d) continue;
-      if (out != nullptr) {
-        store_out(out + r * d + c, acc[ii][e] / lrow[ii]);
-      } else {
-        o_io[r * d + c] = acc[ii][e];
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch_chunked(const void* q, const void* k, const void* v,
-                   const float* m, const float* l, float* m_out,
-                   float* l_out, float* o, void* out, int lq, int lk, int d,
-                   float scale, cudaStream_t stream) {
-  // Above 48 KB of dynamic shared memory needs this opt-in, per device.
-  const cudaError_t e = cudaFuncSetAttribute(
-      ring_fold_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kChunkSmem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid(unsigned((lq + kBQ - 1) / kBQ),
-                  unsigned((d + kChunk - 1) / kChunk));
-  ring_fold_kernel<T><<<grid, kThreads, kChunkSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m, l, m_out, l_out, o, static_cast<T*>(out),
-      lq, lk, d, scale);
-  return int(cudaGetLastError());
-}
 }  // namespace
 
 // Bytes of device scratch a call with these shapes needs (256-byte
-// aligned, as PyTorch allocates): the split operands and the key splits'
-// partials for d <= 256, none for d > 256.
+// aligned, as PyTorch allocates): the split operands and the partials.
 extern "C" long long tbus_ring_fold_scratch_bytes(int lq, int lk, int d,
                                                   int dtype) {
-  if (lq <= 0 || lk <= 0 || d <= 0 || d > kMaxD) return 0;
+  if (lq <= 0 || lk <= 0 || d <= 0) return 0;
   if (dtype != 0 && dtype != 1) return 0;
   return with_inst(d, dtype, [&](auto in) {
     using I = decltype(in);
-    return layout<I::kNT, I::kKD>(lq, lk).bytes;
+    return layout<I::kNT, I::kKD, I::kStreamed>(lq, lk, d).bytes;
   });
 }
 
-// out: null, or (final fold) [lq, d] in q's dtype, written instead of o.
+// Folds k, v into the carry (m, l, o) in place; out: null, or (final
+// fold) [lq, d] in q's dtype, written instead of o.
 extern "C" int tbus_ring_fold(const void* q, const void* k, const void* v,
-                              const void* m, const void* l, void* m_out,
-                              void* l_out, void* o, void* out, void* scratch,
-                              int lq, int lk, int d, float scale, int dtype,
-                              void* stream) {
+                              void* m, void* l, void* o, void* out,
+                              void* scratch, int lq, int lk, int d,
+                              float scale, int dtype, void* stream) {
   if (lq <= 0 || lk <= 0 || d <= 0) return int(cudaSuccess);
   if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* mf = static_cast<const float*>(m);
-  const float* lf = static_cast<const float*>(l);
-  float* mo = static_cast<float*>(m_out);
-  float* lo = static_cast<float*>(l_out);
-  float* of = static_cast<float*>(o);
-  if (d > kMaxD) {
-    return dtype == 0
-               ? launch_chunked<float>(q, k, v, mf, lf, mo, lo, of, out, lq,
-                                       lk, d, scale, s)
-               : launch_chunked<__nv_bfloat16>(q, k, v, mf, lf, mo, lo, of,
-                                               out, lq, lk, d, scale, s);
-  }
   if (scratch == nullptr) return int(cudaErrorInvalidValue);
   auto* sc = static_cast<uint8_t*>(scratch);
   return with_inst(d, dtype, [&](auto in) {
     using I = decltype(in);
-    return launch_wgmma<typename I::Type, I::kNT, I::kKD>(
-        q, k, v, mf, lf, mo, lo, of, out, sc, lq, lk, d, scale, s);
+    return launch_wgmma<typename I::Type, I::kNT, I::kKD, I::kStreamed>(
+        q, k, v, static_cast<float*>(m), static_cast<float*>(l),
+        static_cast<float*>(o), out, sc, lq, lk, d, scale,
+        static_cast<cudaStream_t>(stream));
   });
 }

@@ -267,8 +267,8 @@ def ring_fold_lib() -> ctypes.CDLL:
     return _cuda_lib("ring_fold", [
         ("tbus_ring_fold_scratch_bytes", [_I, _I, _I, _I], _LL),
         ("tbus_ring_fold",
-         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F,
-          _I, _VP], _I)])
+         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
+         _I)])
 
 
 def device_programs_lib() -> ctypes.CDLL:

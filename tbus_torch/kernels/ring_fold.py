@@ -16,11 +16,13 @@ returns ``(o' / l').to(q.dtype)`` instead of writing o' (m' and l' are
 still written), so the last step's normalise-and-cast runs inside the
 kernel.
 
-On the card, heads up to :data:`WGMMA_MAX_D` wide take the split-term
-design (both products on the tensor cores over exact bf16 terms of the
-f32 operands: a pack, the fold, and a merge of the key splits where
-there are several), d padded to 128, 192 or 256; wider heads take the
-chunked f32 FMA kernel (csrc/ring_fold.cu).
+On the card every width runs on the tensor cores, over exact bf16 terms
+of the f32 operands (csrc/ring_fold.cu): a pack, the fold, and a merge of
+the partials where there are any. Heads up to :data:`RESIDENT_MAX_D` wide
+keep q resident in a block, d padded to 128, 192 or 256; wider heads
+stream q's and k's 64-column chunks through the block and split o's
+columns into groups of 192 or 256, one group a block, each group
+computing all of s.
 """
 
 from __future__ import annotations
@@ -33,14 +35,28 @@ from tbus_torch.kernels import DTYPE_CODES, ieee_fp32
 
 # Kernel launches made by this process (bumped only where the kernel is
 # launched, never by the plain version); wide_launches counts those that
-# ran the wide heads' kernels (128 < d <= WGMMA_MAX_D).
+# ran the wide heads' kernels (128 < d <= RESIDENT_MAX_D), stream_launches
+# those past it (the head-dim-streamed kernels).
 launches = 0
 wide_launches = 0
+stream_launches = 0
 
-# The widest head the split-term wgmma design takes; a wider d runs in the
-# chunked FMA kernel, whose m and l go to fresh outputs
-# (csrc/ring_fold.cu).
-WGMMA_MAX_D = 256
+# The widest head whose q stays resident in a block of the split-term
+# wgmma fold; a wider d streams q through the block (csrc/ring_fold.cu).
+RESIDENT_MAX_D = 256
+
+
+def column_groups(d: int) -> Tuple[int, int]:
+    """Past RESIDENT_MAX_D: (G, OW), o's column groups and their width, as
+    csrc/ring_fold.cu group_width makes them: d padded to D, a multiple
+    of 64, in G = ceil(D / 256) groups of D / G columns rounded up to 64
+    (192 or 256), one group a block."""
+    if d <= RESIDENT_MAX_D:
+        raise ValueError(f"column_groups: d {d} keeps q resident")
+    dpad = -(-d // 64) * 64
+    groups = -(-dpad // 256)
+    width = -(-dpad // groups)
+    return groups, -(-width // 64) * 64
 
 
 def _check(q, k_blk, v_blk, m, l, o) -> None:
@@ -98,7 +114,7 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     final=True writes m and l, leaves o, and returns (o' / l') in q's
     dtype. Launches the kernel for CUDA tensors; the plain version serves
     only tensors on the CPU."""
-    global launches, wide_launches
+    global launches, wide_launches, stream_launches
     _check(q, k_blk, v_blk, m, l, o)
     if q.device.type == "cpu":
         m_new, l_new, o_new = fold_reference(q, k_blk, v_blk, m, l, o)
@@ -122,30 +138,21 @@ def fold_(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
     lib = _build.ring_fold_lib()
     q, k_blk, v_blk = (t.contiguous() for t in (q, k_blk, v_blk))
     code = DTYPE_CODES[q.dtype]
-    # The split-term kernel writes m and l in place; the chunked one's
-    # blocks read the old m and l until the last of them ends, so theirs
-    # go to fresh tensors.
-    m_out, l_out = ((m, l) if d <= WGMMA_MAX_D
-                    else (torch.empty_like(m), torch.empty_like(l)))
     out = torch.empty((lq, d), dtype=q.dtype, device=q.device) \
         if final else None
     with torch.cuda.device(q.device):
         nbytes = lib.tbus_ring_fold_scratch_bytes(lq, lk, d, code)
-        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) \
-            if nbytes else None
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
         err = lib.tbus_ring_fold(
             q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
-            l.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), o.data_ptr(),
-            out.data_ptr() if final else None,
-            scratch.data_ptr() if nbytes else None, lq, lk, d,
-            float(_scale(d)), code,
+            l.data_ptr(), o.data_ptr(), out.data_ptr() if final else None,
+            scratch.data_ptr(), lq, lk, d, float(_scale(d)), code,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_fold kernel launch failed: CUDA error {err}")
     launches += 1
-    if 128 < d <= WGMMA_MAX_D:
+    if 128 < d <= RESIDENT_MAX_D:
         wide_launches += 1
-    if m_out is not m:
-        m.copy_(m_out)
-        l.copy_(l_out)
+    elif d > RESIDENT_MAX_D:
+        stream_launches += 1
     return out

@@ -12,9 +12,11 @@ kernels run only on the card; these tests pin, before any card runs them:
   f64), each group of 16 products (one wgmma k-step) summed exactly and
   rounded into an f32 accumulator, the terms in the kernels' order
   (smallest first), K3's i + j <= 2 cross terms, its padded widths
-  (128, 192, 256) and tiles of 64 or 32 keys with the online rescale,
-  p's split by integer arithmetic (round half away from zero, exact all
-  the same), its key splits and their merge. K3's emulation is held to
+  (128, 192, 256, and past 256 the streamed route's D with its column
+  groups and its s summed chunk after chunk of 64 columns) and tiles of
+  64 or 32 keys with the online rescale, p's split by integer
+  arithmetic (round half away from zero, exact all the same), its key
+  splits and their merge. K3's emulation is held to
   the JAX package's ring attention (tbus/parallel/collective.py :125
   ring_attention.fold over a 4-position ring, as
   tests/test_collectives.py runs it) within its 2e-5, f32 and bf16
@@ -43,6 +45,18 @@ from tbus_torch.kernels import _build, gemm, ring_fold as rf
 from tbus_torch.kernels import split3_reference
 
 F32_MAX = float(np.finfo(np.float32).max)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations below run thousands of tiny float64 products, where
+    torch's intra-op threads only spin beside XLA's (the conftest's 8
+    virtual devices): on one thread the file runs about ten times faster,
+    the products the same."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _split_sum(a: torch.Tensor) -> torch.Tensor:
@@ -251,42 +265,63 @@ def _pairs(ni: int, nj: int):
 def fold_tiling(d: int, nt: int):
     """K3's padded head width and keys per tile (csrc/ring_fold.cu Fold):
     d up to 128 pads to 128 with 64-key tiles; wider heads pad to the next
-    multiple of 64, with 32-key tiles for f32 inputs (three terms) and 64
-    for bf16."""
+    multiple of 64, with 32-key tiles for f32 inputs (three terms) up to
+    256 and 64 for bf16; past 256 (q streamed) 64-key tiles for both."""
     kd = 128 if d <= 128 else -(-d // 64) * 64
-    return kd, 32 if kd > 128 and nt == 3 else 64
+    return kd, 32 if 128 < kd <= rf.RESIDENT_MAX_D and nt == 3 else 64
+
+
+def s_order(dpad: int, nt: int, half: int, halves: int):
+    """The (q term, k term, first column) of each k16 step of s, in the
+    order the kernel sums them into one consumer's accumulator: resident
+    q, each cross term over the consumer's k16 steps of the whole head
+    dim; past 256 (q streamed), chunk after chunk of 64 columns, each
+    chunk's cross terms over its k16 steps. With f32 inputs on wide heads
+    a consumer takes every other k16 step from its `half`-th."""
+    step = 16 * halves
+    if dpad > rf.RESIDENT_MAX_D:
+        return [(i, j, g) for b in range(0, dpad, 64)
+                for i, j in _pairs(nt, nt)
+                for g in range(b + 16 * half, b + 64, step)]
+    return [(i, j, g) for i, j in _pairs(nt, nt)
+            for g in range(16 * half, dpad, step)]
 
 
 def emulate_fold(q, k, v, m, l, o, nsplit, final=False):
     """K3's arithmetic on one block (csrc/ring_fold.cu): head dim padded to
     its width, tiles of keys (fold_tiling) split into nsplit runs, each run
     an online softmax from -inf with s and o_tile summed by k16 groups into
-    f32, o = fma(o, a, o_tile), p split by split3_bits; then the merge
-    with the carry. Wide heads (d > 128) with f32 inputs sum s over the
-    head dim's two halves (alternate groups of 16 columns) apart and add
-    the halves (bf16 inputs: one sum);
-    their column halves of o run the same arithmetic on the same p."""
+    f32 (s in s_order), o = fma(o, a, o_tile), p split by split3_bits;
+    then the merge with the carry. Wide heads (d > 128) with f32 inputs
+    sum s over the head dim's two halves (alternate groups of 16 columns)
+    apart and add the halves (bf16 inputs: one sum, handed over as p);
+    their column halves of o run the same arithmetic on the same p. Past
+    256, o's columns are G groups of OW (ring_fold.column_groups), v
+    zero-padded to G OW, and every group computes all of s the same way
+    (its chunks in s_order, halves and all)."""
     nt = 3 if q.dtype == torch.float32 else 1
     lq, d = q.shape
     lk = k.shape[0]
     dpad, keys = fold_tiling(d, nt)
+    groups, width = (rf.column_groups(d) if dpad > rf.RESIDENT_MAX_D
+                     else (1, dpad))
     tiles = -(-lk // keys)
     f32 = np.float32
     scale = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(d))))
 
-    def padded(a, rows):
-        out = torch.zeros((rows, dpad), dtype=a.dtype)
+    def padded(a, rows, cols=dpad):
+        out = torch.zeros((rows, cols), dtype=a.dtype)
         out[:a.shape[0], :d] = a
         return out
 
     qt = _terms(padded(q.float(), lq), nt)
     kt = _terms(padded(k.float(), tiles * keys), nt)
-    vt = _terms(padded(v.float(), tiles * keys), nt)
+    vt = _terms(padded(v.float(), tiles * keys, groups * width), nt)
     parts = []
     for sp in range(nsplit):
         mr = torch.full((lq,), -math.inf, dtype=torch.float64)
         lr = torch.zeros(lq, dtype=torch.float64)
-        orun = torch.zeros((lq, dpad), dtype=torch.float64)
+        orun = torch.zeros((lq, groups * width), dtype=torch.float64)
         for j in range(sp * tiles // nsplit, (sp + 1) * tiles // nsplit):
             tile = slice(keys * j, keys * j + keys)
             # Wide heads, f32 inputs: each consumer sums s over its half
@@ -296,10 +331,9 @@ def emulate_fold(q, k, v, m, l, o, nsplit, final=False):
             halves = []
             for h in range(nh):
                 sh = torch.zeros((lq, keys), dtype=torch.float64)
-                for i, jj in _pairs(nt, nt):
-                    for g in range(16 * h, dpad, 16 * nh):
-                        sh = _round_f32(sh + qt[i][:, g:g + 16]
-                                        @ kt[jj][tile, g:g + 16].T)
+                for i, jj, g in s_order(dpad, nt, h, nh):
+                    sh = _round_f32(sh + qt[i][:, g:g + 16]
+                                    @ kt[jj][tile, g:g + 16].T)
                 halves.append(sh)
             s = _round_f32(sum(halves))
             s = _round_f32(s * scale)
@@ -313,11 +347,14 @@ def emulate_fold(q, k, v, m, l, o, nsplit, final=False):
             for c in range(keys):
                 lr = _round_f32(lr + p[:, c])
             pt = split3_bits(p)
-            ot = torch.zeros((lq, dpad), dtype=torch.float64)
-            for i, jj in _pairs(3, nt):
-                for g in range(0, keys, 16):
-                    ot = _round_f32(ot + pt[i][:, g:g + 16]
-                                    @ vt[jj][tile][g:g + 16])
+            ot = torch.zeros((lq, groups * width), dtype=torch.float64)
+            for c0 in range(0, groups * width, width):  # a block's group
+                cols = slice(c0, c0 + width)
+                for i, jj in _pairs(3, nt):
+                    for g in range(0, keys, 16):
+                        ot[:, cols] = _round_f32(
+                            ot[:, cols] + pt[i][:, g:g + 16]
+                            @ vt[jj][tile][g:g + 16, cols])
             orun = _round_f32(orun * alpha[:, None] + ot)
             mr = m_new
         parts.append((mr, lr, orun[:, :d]))
@@ -369,7 +406,9 @@ def _emulated_ring(q, k, v, local, nsplit):
 
 @pytest.mark.parametrize("local,d,nsplit", [(16, 32, 1), (100, 48, 2),
                                             (130, 128, 3), (64, 200, 2),
-                                            (48, 256, 1), (40, 160, 3)],
+                                            (48, 256, 1), (40, 160, 3),
+                                            (40, 320, 1), (130, 400, 2),
+                                            (24, 512, 1)],
                          ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_k3_emulation_matches_jax_ring_attention(local, d, nsplit, dtype):
