@@ -26,7 +26,7 @@ from tbus_torch.rpc import (Channel, GrpcStub,  # noqa: F401
                             budget_breakdown, builtin_handler,
                             cache_corpus_write, cache_reshard_drill,
                             cache_stats, connections_dump, device_available,
-                            device_dma_stats, device_enable_dma,
+                            device_dma_stats, device_jobs, device_enable_dma,
                             device_init, device_registered_regions,
                             device_stats, enable_native_fanout,
                             enable_torch_fanout, fanout_step_stats,

@@ -4,6 +4,7 @@
 #include <string.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <condition_variable>
@@ -21,6 +22,7 @@
 #include "rpc/controller.h"
 #include "rpc/errors.h"
 #include "rpc/server.h"
+#include "rpc/span.h"
 #include "rpc/transport_hooks.h"
 #include "tpu/block_pool.h"
 #include "tpu/pjrt_dma.h"
@@ -492,6 +494,86 @@ struct Job {
   size_t out_cap = 0;
   std::shared_ptr<AliasGuard> guard;
   CudaRuntime::Callback cb;
+  // Set by EnqueueJob: the record's enq stamp, depth and span ids.
+  JobRecord rec;
+};
+
+// ---- the job timeline ----
+
+constexpr size_t kMaxQueue = 128;
+
+// Log-linear buckets: [0, 64 ns), then 16 an octave from 2^6 to 2^36 ns
+// (68.7 s), then [2^36 ns, inf). A bucket is at most 1/16 of its lower
+// bound wide.
+constexpr int kSubBits = 4;
+constexpr int kMinExp = 6;
+constexpr int kMaxExp = 36;
+constexpr int kBuckets = 2 + ((kMaxExp - kMinExp) << kSubBits);
+
+int bucket_of(int64_t v) {
+  if (v < (int64_t(1) << kMinExp)) return 0;
+  const int e = 63 - __builtin_clzll(uint64_t(v));
+  if (e >= kMaxExp) return kBuckets - 1;
+  const int sub = int((uint64_t(v) >> (e - kSubBits)) & ((1u << kSubBits) - 1));
+  return 1 + ((e - kMinExp) << kSubBits) + sub;
+}
+
+int64_t bucket_lo(int b) {
+  if (b == 0) return 0;
+  if (b == kBuckets - 1) return int64_t(1) << kMaxExp;
+  const int e = kMinExp + ((b - 1) >> kSubBits);
+  const int sub = (b - 1) & ((1 << kSubBits) - 1);
+  return (int64_t(1) << e) + (int64_t(sub) << (e - kSubBits));
+}
+
+enum Hop { kQueue = 0, kHostPrep, kDevice, kReply, kJobHop, kHops };
+const char* const kHopNames[kHops] = {"queue", "host_prep", "device",
+                                      "reply", "job"};
+constexpr int64_t kSlowJobNs = 5000000;
+
+// Written by the dispatch thread alone (relaxed loads and stores, no
+// lock, no allocation); read by stats() and CopyJobs at any time.
+struct Timeline {
+  using Counter = std::atomic<uint64_t>;
+  Counter hist[kHops][kBuckets] = {};
+  Counter count[kHops] = {};
+  Counter sum_ns[kHops] = {};
+  Counter depth[kMaxQueue + 1] = {};
+  Counter busy_ns{0};
+  Counter slow[kJobHop] = {};  // jobs over kSlowJobNs by their largest hop
+  std::atomic<int64_t> written{0};  // records put in the ring since Init
+  std::atomic<int64_t> claimed{0};  // written, or written + 1 mid-write
+  JobRecord* ring = nullptr;  // CudaRuntime::kJobRing records
+
+  static void bump(Counter& c, uint64_t by = 1) {
+    c.store(c.load(std::memory_order_relaxed) + by,
+            std::memory_order_relaxed);
+  }
+
+  void Record(JobRecord r) {
+    const int64_t hop[kHops] = {r.pick - r.enq, r.h2d - r.pick,
+                                r.synced - r.h2d, r.replied - r.synced,
+                                r.replied - r.enq};
+    int largest = 0;
+    for (int h = 0; h < kHops; ++h) {
+      const int64_t v = hop[h] > 0 ? hop[h] : 0;
+      bump(hist[h][bucket_of(v)]);
+      bump(count[h]);
+      bump(sum_ns[h], uint64_t(v));
+      if (h < kJobHop && hop[h] > hop[largest]) largest = h;
+    }
+    bump(depth[r.depth < int(kMaxQueue) ? r.depth : int(kMaxQueue)]);
+    if (r.replied > r.pick) bump(busy_ns, uint64_t(r.replied - r.pick));
+    if (hop[kJobHop] > kSlowJobNs) bump(slow[largest]);
+    // A seqlock's writer side: the claim is visible before the slot
+    // changes, the record before the count that publishes it.
+    const int64_t seq = written.load(std::memory_order_relaxed);
+    r.seq = seq;
+    claimed.store(seq + 1, std::memory_order_relaxed);
+    std::atomic_thread_fence(std::memory_order_release);
+    ring[size_t(seq) % CudaRuntime::kJobRing] = r;
+    written.store(seq + 1, std::memory_order_release);
+  }
 };
 
 struct Runtime {
@@ -509,11 +591,11 @@ struct Runtime {
   std::condition_variable q_cv;
   std::deque<Job> q;
   bool thread_started = false;
+
+  Timeline tl;
 };
 
 Runtime* g_rt = nullptr;  // set once by Init; never destroyed
-
-constexpr size_t kMaxQueue = 128;
 
 // Under rt->mu. Returns the new handle, or -1 with *why.
 int add_program(Runtime* rt, const ProgramDesc& desc, bool whole_output,
@@ -551,8 +633,9 @@ struct Pins {
 void free_pool_block(void* p) { tpu::pool_deallocate(p); }
 
 // One device round trip, on the dispatch thread.
+// Stamps t->h2d, t->exec and t->synced as it gets there.
 int execute_job(Runtime* rt, const Program& prog, const Job& job,
-                IOBuf* output, std::string* why) {
+                IOBuf* output, JobRecord* t, std::string* why) {
   DeviceBackend* be = rt->backend.get();
   const size_t plen = prog.desc.len;
   const size_t olen = prog.desc.out_len;
@@ -599,6 +682,10 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
     if (own != nullptr) tpu::pool_deallocate(own);
     return rc;
   };
+  auto put = [&](size_t off, const char* src, size_t len) {
+    if (t->h2d == 0) t->h2d = monotonic_time_ns();
+    return be->Put(prog.plan, off, src, len, why);
+  };
 
   Pins pins;
   std::vector<bool> aliased(rows.size());
@@ -621,7 +708,7 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
       const char* p = in.backing_block(0).data;
       if (pins.Take(rt, p, len, false)) {
         donated = true;
-        rc = be->Put(prog.plan, off, p, len, why);
+        rc = put(off, p, len);
       }
     }
     tpu::PjrtDmaNoteDonation(donated);
@@ -630,20 +717,20 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
       in.copy_to(stage_in + off, len);
       if (stride > len) memset(stage_in + off + len, 0, stride - len);
       tpu::PjrtDmaNoteH2dCopy(len);
-      rc = be->Put(prog.plan, off, stage_in + off, stride, why);
+      rc = put(off, stage_in + off, stride);
     }
     if (rc != 0) return fail(EINTERNAL);
   }
   const size_t filled = job.inputs.size() * stride;
   if (filled < plen) {
     memset(stage_in + filled, 0, plen - filled);
-    if (be->Put(prog.plan, filled, stage_in + filled, plen - filled, why) !=
-        0) {
+    if (put(filled, stage_in + filled, plen - filled) != 0) {
       return fail(EINTERNAL);
     }
   }
   // With a guard, the program has finished before the guard is taken, so
   // a caller past its deadline waits at most for the copies out.
+  t->exec = monotonic_time_ns();
   if (be->Exec(prog.plan, job.guard != nullptr, why) != 0) {
     return fail(EINTERNAL);
   }
@@ -666,6 +753,7 @@ int execute_job(Runtime* rt, const Program& prog, const Job& job,
       }
     }
     if (be->Sync(prog.plan, why) != 0) return fail(EINTERNAL);
+    t->synced = monotonic_time_ns();
     if (!abandoned) {
       for (size_t r = 0; r < rows.size(); ++r) {
         if (aliased[r]) continue;
@@ -694,6 +782,8 @@ void dispatch_main() {
       job = std::move(rt->q.front());
       rt->q.pop_front();
     }
+    JobRecord& t = job.rec;
+    t.pick = monotonic_time_ns();
     std::string why;
     if (job.handle == Job::kResolveOnDispatch) {
       job.handle =
@@ -711,10 +801,15 @@ void dispatch_main() {
     IOBuf out;
     int rc = EREQUEST;
     if (valid) {
-      rc = execute_job(rt, prog, job, &out, &why);
+      rc = execute_job(rt, prog, job, &out, &t, &why);
     } else if (why.empty()) {
       why = "no such program";
     }
+    // A job that failed short of a stamp takes the time it failed there.
+    const int64_t ended = monotonic_time_ns();
+    if (t.h2d == 0) t.h2d = ended;
+    if (t.exec == 0) t.exec = ended;
+    if (t.synced == 0) t.synced = ended;
     if (rc != 0) {
       std::lock_guard<std::mutex> g(rt->mu);
       ++rt->st.errors;
@@ -723,12 +818,21 @@ void dispatch_main() {
     // released before the caller hears back.
     job.inputs.clear();
     job.cb(rc, std::move(out), why);
+    t.replied = monotonic_time_ns();
+    t.rc = rc;
+    rt->tl.Record(t);
   }
 }
 
 void EnqueueJob(Runtime* rt, Job j) {
   bool overcrowded = false;
   CudaRuntime::Callback cb = j.cb;  // kept for the overcrowded path
+  // The rpcz server span of the call that queues this job (a device
+  // method's handler runs under it), so a job joins its call's waterfall.
+  if (const Span* sp = span_current()) {
+    j.rec.trace_id = sp->trace_id;
+    j.rec.span_id = sp->span_id;
+  }
   {
     std::lock_guard<std::mutex> lk(rt->q_mu);
     if (!rt->thread_started) {
@@ -738,6 +842,8 @@ void EnqueueJob(Runtime* rt, Job j) {
     if (rt->q.size() >= kMaxQueue) {
       overcrowded = true;
     } else {
+      j.rec.depth = int32_t(rt->q.size());
+      j.rec.enq = monotonic_time_ns();
       rt->q.push_back(std::move(j));
     }
   }
@@ -823,6 +929,14 @@ int CudaRuntime::Init(const std::string& device, const char* backend_so,
   }
   auto rt = std::make_unique<Runtime>();
   rt->device = device;
+  // calloc: the ring's pages are mapped as the dispatch thread first
+  // writes them.
+  rt->tl.ring = static_cast<JobRecord*>(
+      calloc(CudaRuntime::kJobRing, sizeof(JobRecord)));
+  if (rt->tl.ring == nullptr) {
+    *why = "no memory for the job ring";
+    return -1;
+  }
   CudaBackend* cuda = nullptr;
   if (device == "cuda") {
     std::unique_ptr<CudaBackend> b = CudaBackend::Open(backend_so, why);
@@ -1036,6 +1150,73 @@ HostRegisterStats CudaRuntime::host_register_stats() const {
 void CudaRuntime::ResetLaunches() {
   Runtime* rt = g_rt;
   if (rt != nullptr) rt->backend->ResetLaunches();
+}
+
+std::string CudaRuntime::stages_json() const {
+  Runtime* rt = g_rt;
+  if (rt == nullptr) return "null";
+  const Timeline& tl = rt->tl;
+  auto get = [](const Timeline::Counter& c) {
+    return (unsigned long long)c.load(std::memory_order_relaxed);
+  };
+  std::ostringstream os;
+  os << "{\"jobs\":" << tl.written.load(std::memory_order_acquire)
+     << ",\"ring_capacity\":" << kJobRing << ",\"bucket_lo_ns\":[";
+  for (int b = 0; b < kBuckets; ++b) os << (b ? "," : "") << bucket_lo(b);
+  os << "],\"hops\":{";
+  for (int h = 0; h < kHops; ++h) {
+    os << (h ? "," : "") << "\"" << kHopNames[h] << "\":{\"count\":"
+       << get(tl.count[h]) << ",\"sum_ns\":" << get(tl.sum_ns[h])
+       << ",\"buckets\":[";
+    bool first = true;
+    for (int b = 0; b < kBuckets; ++b) {
+      const unsigned long long n = get(tl.hist[h][b]);
+      if (n == 0) continue;
+      os << (first ? "" : ",") << "[" << b << "," << n << "]";
+      first = false;
+    }
+    os << "]}";
+  }
+  os << "},\"depth\":[";
+  bool first = true;
+  for (size_t d = 0; d <= kMaxQueue; ++d) {
+    const unsigned long long n = get(tl.depth[d]);
+    if (n == 0) continue;
+    os << (first ? "" : ",") << "[" << d << "," << n << "]";
+    first = false;
+  }
+  os << "],\"busy_ns\":" << get(tl.busy_ns) << ",\"slow_jobs\":{"
+     << "\"over_ns\":" << kSlowJobNs;
+  for (int h = 0; h < kJobHop; ++h) {
+    os << ",\"" << kHopNames[h] << "\":" << get(tl.slow[h]);
+  }
+  os << "}}";
+  return os.str();
+}
+
+size_t CudaRuntime::CopyJobs(int64_t since_ns, int64_t until_ns,
+                             JobRecord* out, size_t cap) const {
+  Runtime* rt = g_rt;
+  if (rt == nullptr || out == nullptr) return 0;
+  const Timeline& tl = rt->tl;
+  const int64_t ring = int64_t(kJobRing);
+  const int64_t end = tl.written.load(std::memory_order_acquire);
+  const int64_t begin = end > ring ? end - ring : 0;
+  std::vector<JobRecord> copy(size_t(end - begin));
+  for (int64_t i = begin; i < end; ++i) {
+    copy[size_t(i - begin)] = tl.ring[size_t(i) % kJobRing];
+  }
+  // Records the dispatch thread overwrote, or began to, while they were
+  // copied are dropped: the rest are whole.
+  std::atomic_thread_fence(std::memory_order_acquire);
+  const int64_t now = tl.claimed.load(std::memory_order_relaxed);
+  const int64_t valid = now > ring ? now - ring : 0;
+  size_t n = 0;
+  for (int64_t i = std::max(begin, valid); i < end && n < cap; ++i) {
+    const JobRecord& r = copy[size_t(i - begin)];
+    if (r.enq <= until_ns && r.replied >= since_ns) out[n++] = r;
+  }
+  return n;
 }
 
 size_t DeviceLenClass(size_t n) {

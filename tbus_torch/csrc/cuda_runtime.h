@@ -82,6 +82,26 @@ struct CudaStats {
   long long launches[kKernels] = {0, 0, 0, 0};  // by the CUDA backend
 };
 
+// One device job on the core's stage clock (monotonic_time_ns,
+// CLOCK_MONOTONIC: the clock of the rpcz spans' stage stamps), as the
+// runtime's record ring keeps it. Stamps come in this order; a job that
+// failed before a stamp gets the time it failed there.
+struct JobRecord {
+  int64_t seq = 0;       // the job's number since Init (0, 1, ...)
+  int64_t enq = 0;       // EnqueueJob queued it
+  int64_t pick = 0;      // the dispatch thread popped it
+  int64_t h2d = 0;       // the first Put issued (plan, pins, donation done)
+  int64_t exec = 0;      // Exec issued
+  int64_t synced = 0;    // Sync returned: the copies out are done
+  int64_t replied = 0;   // the callback returned (a server's done():
+                         // the reply written, on the dispatch thread)
+  uint64_t trace_id = 0;  // the rpcz server span that queued it; 0 when
+  uint64_t span_id = 0;   // rpcz is off or no span was current
+  int32_t depth = 0;     // jobs queued ahead of it when it was queued
+  int32_t rc = 0;
+};
+static_assert(sizeof(JobRecord) == 80, "rpc.JOB_DTYPE mirrors this layout");
+
 // The CUDA backend's own record of the ranges cudaHostRegister accepted
 // (the DMA table keeps an entry even where the backend refused one).
 struct HostRegisterStats {
@@ -203,6 +223,22 @@ class CudaRuntime {
   CudaStats stats() const;
   HostRegisterStats host_register_stats() const;
   void ResetLaunches();
+
+  // The job timeline, always on; the dispatch thread is its only writer.
+  // stages_json(): cumulative since Init, log-linear histograms (16
+  // buckets an octave, 64 ns to 2^36 ns, sparse [bucket, count] pairs,
+  // every bucket's lower bound given once) of the hops queue (pick -
+  // enq), host_prep (h2d - pick), device (synced - h2d), reply (replied
+  // - synced) and job (replied - enq); the queue depth found at enqueue;
+  // busy_ns (the sum of replied - pick); jobs over 5 ms by their largest
+  // hop.
+  std::string stages_json() const;
+  // Copies the ring's records that overlap [since_ns, until_ns] (enq <=
+  // until_ns, replied >= since_ns), oldest first, at most cap of them;
+  // returns how many. The ring keeps the newest kJobRing jobs.
+  static constexpr size_t kJobRing = 131072;
+  size_t CopyJobs(int64_t since_ns, int64_t until_ns, JobRecord* out,
+                  size_t cap) const;
 };
 
 // Mounts (service, method) on `s` with a handler that round-trips the

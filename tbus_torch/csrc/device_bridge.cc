@@ -216,7 +216,32 @@ char* tbus_torch_device_stats_json(void) {
            st.launches[tbus::cuda::kDot128],
            st.launches[tbus::cuda::kDotbench],
            st.launches[tbus::cuda::kFanout]);
-  return dup_str(std::string(buf) + dma_stats_json() + "}");
+  const std::string stages =
+      CudaRuntime::Get() != nullptr ? CudaRuntime::Get()->stages_json()
+                                    : "null";
+  return dup_str(std::string(buf) + dma_stats_json() + ",\"stages\":" +
+                 stages + "}");
+}
+
+// The job record ring (cuda_runtime.h JobRecord, 80 bytes a record):
+// copies into `out` the records overlapping [since_ns, until_ns], at most
+// cap, oldest first; returns how many (-1 without the runtime).
+long long tbus_torch_device_jobs(long long since_ns, long long until_ns,
+                                 void* out, long long cap) {
+  CudaRuntime* rt = CudaRuntime::Get();
+  if (rt == nullptr || cap < 0) return -1;
+  return (long long)rt->CopyJobs(since_ns, until_ns,
+                                 static_cast<tbus::cuda::JobRecord*>(out),
+                                 size_t(cap));
+}
+
+// The ring's capacity and a record's size, for the reader's buffer and
+// its check of the layout.
+long long tbus_torch_device_job_ring(int* record_bytes) {
+  if (record_bytes != nullptr) {
+    *record_bytes = int(sizeof(tbus::cuda::JobRecord));
+  }
+  return (long long)CudaRuntime::kJobRing;
 }
 
 // Sets every kernel's launch count to 0 (a main-path run reads them from

@@ -398,6 +398,8 @@ def device_bridge_lib() -> ctypes.CDLL:
         ("tbus_torch_device_available", [], i),
         ("tbus_torch_device_stats_json", [], vp),
         ("tbus_torch_device_reset_launches", [], None),
+        ("tbus_torch_device_jobs", [ll, ll, vp, ll], ll),
+        ("tbus_torch_device_job_ring", [ctypes.POINTER(i)], ll),
         ("tbus_torch_server_add_device_method", [vp, cp, cp, cp], i),
         ("tbus_torch_server_add_generate_method",
          [vp, cp, cp, cp, ll, ll, i, ll, cp], i),

@@ -137,9 +137,54 @@ def device_stats() -> dict:
     executions, h2d/d2h bytes, zero_copy_h2d (executions that read every
     input in place), errors, overcrowded jobs, each kernel's launches (on
     the CUDA backend) and the DMA block (device_dma_stats). The core's
-    /status page carries them too, on its "cuda_runtime:" line."""
+    /status page carries them too, on its "cuda_runtime:" line.
+
+    "stages" is the job timeline, cumulative since device_init (None
+    without the runtime), so the difference of two readings is exactly
+    the jobs between them: "jobs" (records written), "ring_capacity",
+    "bucket_lo_ns" (each histogram bucket's lower bound; a bucket ends
+    where the next begins, the last is open), "hops" (queue = pick - enq,
+    host_prep = h2d - pick, device = synced - h2d, reply = replied -
+    synced, job = replied - enq: each {"count", "sum_ns", "buckets":
+    [[bucket, count], ...]}), "depth" ([[jobs queued ahead, count],
+    ...]), "busy_ns" (the dispatch thread's sum of replied - pick),
+    "slow_jobs" (jobs over "over_ns" by the hop that took most of them).
+    JOB_DTYPE names the stamps."""
     return json.loads(_take_str(
         _device_bridge().tbus_torch_device_stats_json()))
+
+
+# One record of the device runtime's job ring (cuda_runtime.h JobRecord):
+# its stamps are monotonic_time_ns (CLOCK_MONOTONIC), the clock of the
+# rpcz spans' stage stamps; trace_id and span_id are the rpcz server span
+# that queued the job (0 with rpcz off).
+JOB_DTYPE = [("seq", "<i8"), ("enq", "<i8"), ("pick", "<i8"), ("h2d", "<i8"),
+             ("exec", "<i8"), ("synced", "<i8"), ("replied", "<i8"),
+             ("trace_id", "<u8"), ("span_id", "<u8"), ("depth", "<i4"),
+             ("rc", "<i4")]
+
+
+def device_jobs(since_ns: int = 0, until_ns: int = 2**63 - 1):
+    """The device runtime's records of the jobs that overlap [since_ns,
+    until_ns] on CLOCK_MONOTONIC (time.monotonic_ns()), oldest first, as
+    a NumPy structured array of JOB_DTYPE: every job the dispatch thread
+    ran (refused ones excepted), the newest ring_capacity of them kept.
+    Raises RuntimeError without the runtime."""
+    import numpy as np
+
+    B = _device_bridge()
+    size = ctypes.c_int(0)
+    cap = B.tbus_torch_device_job_ring(ctypes.byref(size))
+    dtype = np.dtype(JOB_DTYPE)
+    if size.value != dtype.itemsize:
+        raise RuntimeError(f"job record of {size.value} bytes, JOB_DTYPE "
+                           f"{dtype.itemsize}")
+    out = np.zeros(cap, dtype=dtype)
+    n = B.tbus_torch_device_jobs(int(since_ns), int(until_ns),
+                                 out.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("device_jobs: the device runtime is not up")
+    return out[:n].copy()
 
 
 def reset_device_launches() -> None:

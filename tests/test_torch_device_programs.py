@@ -95,10 +95,19 @@ print("CHILD-OK", flush=True)
 
 @pytest.fixture(scope="module")
 def replies(tmp_path_factory):
+    # The child loads the core through the JAX package's loader, whose
+    # build lock holds within one process only: a test worker's `import
+    # tbus` beside it may relink cpp/build/libtbus.so while the child
+    # loads it. The port's loader builds it here under a file lock, after
+    # any other build there has ended, and TBUS_LIB hands the child that
+    # library, so the child builds nothing.
+    from tbus_torch import _native
+
+    env = dict(os.environ, TBUS_LIB=_native.build())
     path = str(tmp_path_factory.mktemp("device_programs") / "replies.npz")
     src = CHILD % {"root": ROOT, "u8": U8, "dotbench": DOTBENCH,
                    "lengths": LENGTHS, "dot_k": DOT_K, "seeds": SEEDS}
-    proc = subprocess.run([sys.executable, "-c", src, path],
+    proc = subprocess.run([sys.executable, "-c", src, path], env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "CHILD-OK" in proc.stdout, (
         proc.returncode, proc.stdout[-2000:], proc.stderr[-4000:])
