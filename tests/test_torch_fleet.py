@@ -6,12 +6,9 @@ drill forks and execs the port's own node (tbus_torch.rpc.FLEET_NODE, which
 imports tbus_torch and never tbus), the reference's supervisor too: the
 reference's node arms its metrics exporter on its first timer, which the
 core's timer thread can lose. Every drill and roll runs in a child process
-in a new session, under its own deadline: on expiry the child's whole
-process group (the supervisor and its nodes) is killed and the test fails
-with the child's stderr, and after every child the test checks that no
-process of its group outlived it. The drill's and the roll's invariants are
-tests/test_fleet.py's own: its smoke tests run with their tbus replaced by
-the port's drills.
+in a new session, under a deadline (tests/_drills.py). The drill's and the
+roll's invariants are tests/test_fleet.py's own: its smoke tests run with
+their tbus replaced by the port's drills.
 
 The live redial runs in this process against a port device server in a
 child (device_init("cpu"): Xor goes through K4's plain version), with
@@ -20,14 +17,11 @@ calls streaming from a thread while tbus_shm_lanes changes.
 
 import ast
 import inspect
-import json
 import os
-import signal
 import subprocess
 import sys
 import threading
 import time
-import types
 
 import numpy as np
 import pytest
@@ -37,9 +31,7 @@ import tbus_torch as tt
 import tbus_torch.parallel
 import tbus_torch.rpc as port
 import test_fleet
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEADLINE_S = 90
+from _drills import DEADLINE_S, ROOT, Drill, in_children
 
 FUNCTIONS = [("fleet_node_run", "fleet_node_run"),
              ("fleet_drill", "fleet_drill"),
@@ -60,17 +52,6 @@ RENAMES = {
     "pjrt_stats": "device_stats",
 }
 
-# One drill or roll in a child, on the port's nodes: the report on one line.
-_DRILL_CHILD = r"""
-import json, sys
-sys.path.insert(0, %(root)r)
-import %(package)s as t
-%(prelude)s
-r = t.%(fn)s(%(argv)r, **%(kwargs)r)
-print("REPORT " + json.dumps(r), flush=True)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in %(foreign)r)
-assert not leaked, leaked
-"""
 # A prelude: a SIGPROF every 50 ms at the thread that runs the drill, the
 # signal of the core's CPU profiler, which the drill's own SLO leg starts.
 _SIGPROF_STORM = r"""
@@ -83,62 +64,6 @@ def _storm():
         time.sleep(0.05)
 threading.Thread(target=_storm, daemon=True).start()
 """
-# What a child of each side must not have imported.
-_FOREIGN = {"tbus_torch": ("jax", "tbus"), "tbus": ("tbus_torch",)}
-
-
-def _group_alive(pgid):
-    try:
-        os.killpg(pgid, 0)
-    except ProcessLookupError:
-        return False
-    return True
-
-
-class _Drill:
-    """A drill or roll running in a child process, in its own session."""
-
-    def __init__(self, package, fn, *, prelude="", **kwargs):
-        # Any build of the core in progress is waited out here, before the
-        # deadline runs, and the child loads the core this process loaded
-        # (TBUS_LIB): the reference's loader would build beside another
-        # build, or open a half-written core (ROADMAP C).
-        argv = port.fleet_node_argv()
-        source = _DRILL_CHILD % {"root": ROOT, "package": package, "fn": fn,
-                                 "prelude": prelude, "argv": argv,
-                                 "kwargs": kwargs,
-                                 "foreign": _FOREIGN[package]}
-        self.what = f"{package}.{fn}({kwargs})"
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", source], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, start_new_session=True,
-            env=dict(os.environ, TBUS_LIB=port._native.lib()._name))
-        self.deadline = time.monotonic() + DEADLINE_S
-
-    def report(self):
-        """The child's report; fails the test at the deadline (the whole
-        group killed) or when a process of its group outlives it."""
-        try:
-            out, err = self.proc.communicate(
-                timeout=max(1.0, self.deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            os.killpg(self.proc.pid, signal.SIGKILL)
-            _, err = self.proc.communicate()
-            raise AssertionError(f"{self.what}: no report in {DEADLINE_S} "
-                                 f"s; stderr: {err[-4000:]}")
-        finally:
-            leftover = time.monotonic() + 10
-            while _group_alive(self.proc.pid) and time.monotonic() < leftover:
-                time.sleep(0.1)
-            outlived = _group_alive(self.proc.pid)
-            if outlived:
-                os.killpg(self.proc.pid, signal.SIGKILL)
-        assert not outlived, f"{self.what}: a node outlived its drill"
-        lines = [x for x in out.splitlines() if x.startswith("REPORT ")]
-        assert self.proc.returncode == 0 and len(lines) == 1, (
-            f"{self.what}: exit {self.proc.returncode}; stderr: "
-            f"{err[-4000:]}")
-        return json.loads(lines[0][len("REPORT "):])
 
 
 @pytest.mark.parametrize("name,ref_name", FUNCTIONS)
@@ -171,19 +96,21 @@ def test_every_public_name_has_a_counterpart(init, mine):
 
 def _port_drills(monkeypatch, prelude=""):
     """tests/test_fleet.py with its tbus.fleet_drill and tbus.fleet_roll
-    replaced by the port's, each run in a child on the port's nodes after
-    `prelude`."""
-    monkeypatch.setattr(test_fleet, "tbus", types.SimpleNamespace(**{
-        fn: lambda _argv, fn=fn, **kwargs: _Drill(
-            "tbus_torch", fn, prelude=prelude, **kwargs).report()
-        for fn in ("fleet_drill", "fleet_roll")}))
+    replaced by the port's, each run in a child on the port's core after
+    `prelude`; its tests are then called with the port's nodes
+    (fleet_node_argv) as their fleet_env. fleet_node_argv builds or loads
+    the core before any deadline runs, waiting out any build in progress,
+    so the child builds nothing (ROADMAP C2)."""
+    argv = port.fleet_node_argv()
+    monkeypatch.setattr(test_fleet, "tbus", in_children(
+        "tbus_torch", port._native.lib()._name, prelude))
+    return argv
 
 
 def test_fleet_drill_smoke(monkeypatch):
     """tests/test_fleet.py's test_fleet_drill_smoke on the port's
     supervisor and the port's nodes: 4 nodes, 700 ms, seed 7."""
-    _port_drills(monkeypatch)
-    test_fleet.test_fleet_drill_smoke(None)
+    test_fleet.test_fleet_drill_smoke(_port_drills(monkeypatch))
 
 
 def _keys(r):
@@ -201,8 +128,9 @@ def test_fleet_drill_plan_equals_the_references():
     port's plan at seed 99 is the reference supervisor's (tbus.fleet_drill,
     on the port's nodes), seed 100's differs, and the reports carry the
     same keys."""
-    drills = [_Drill(package, "fleet_drill", nodes=4, phase_ms=400,
-                     seed=seed)
+    argv, lib = port.fleet_node_argv(), port._native.lib()._name
+    drills = [Drill(package, "fleet_drill", argv, lib, nodes=4, phase_ms=400,
+                    seed=seed)
               for package, seed in (("tbus_torch", 99), ("tbus", 99),
                                     ("tbus_torch", 100))]
     r1, r_ref, r3 = [d.report() for d in drills]
@@ -218,8 +146,7 @@ def test_fleet_rolling_upgrade_smoke(monkeypatch):
     port's supervisor and nodes: 3 nodes drained, respawned with skewed
     capability flags and republished in sequence, zero lost and zero
     failed calls."""
-    _port_drills(monkeypatch)
-    test_fleet.test_fleet_rolling_upgrade_smoke(None)
+    test_fleet.test_fleet_rolling_upgrade_smoke(_port_drills(monkeypatch))
 
 
 @pytest.mark.parametrize("reference_test", [
@@ -228,8 +155,8 @@ def test_drills_outlast_sigprof(monkeypatch, reference_test):
     """tests/test_fleet.py's smoke tests with a SIGPROF every 50 ms at
     the thread in the port's drill: every phase still carries calls (the
     core ends a phase at once when a signal reaches that thread)."""
-    _port_drills(monkeypatch, prelude=_SIGPROF_STORM)
-    getattr(test_fleet, reference_test)(None)
+    getattr(test_fleet, reference_test)(
+        _port_drills(monkeypatch, prelude=_SIGPROF_STORM))
 
 
 # ---- the live redial ----
