@@ -2,10 +2,12 @@
 // into benchmark/_build/ by benchmark/harness/gen.py.
 //
 // A copy of the core's own loop, tbus_bench_echo_proto (cpp/capi/capi.cc):
-// `clients` fibers, each on a channel (connection) of its own, calling back
-// to back or on a shared issue schedule (the token bucket of upstream
-// rdma_performance's client). The copy closes what the original leaves open
-// for a yardstick:
+// `clients` fibers, each on a channel of its own, calling back to back or on
+// a shared issue schedule (the token bucket of upstream rdma_performance's
+// client). A client's channel is a plain channel to one address
+// (lg_new_channel) or a combo channel, a ParallelChannel over sub-channels
+// to several (lg_new_pchan, upstream parallel_echo's client). The copy
+// closes what the original leaves open for a yardstick:
 // - the payloads are the caller's (seeded), several per client, in turn;
 // - every call's latency is kept, a failed or wrong one as a miss (-1);
 // - failures and wrong replies are counted and returned, never thresholded;
@@ -28,17 +30,24 @@
 #include "fiber/fiber.h"
 #include "fiber/sync.h"
 #include "rpc/channel.h"
+#include "rpc/channel_base.h"
 #include "rpc/controller.h"
+#include "rpc/parallel_channel.h"
+
+struct lg_ctx;
 
 namespace {
 
 using tbus::Channel;
+using tbus::ChannelBase;
 using tbus::ChannelOptions;
 using tbus::Controller;
 using tbus::IOBuf;
+using tbus::ParallelChannel;
+using tbus::ParallelChannelOptions;
 
 struct Ctx {
-  std::vector<std::unique_ptr<Channel>> channels;  // one per client
+  std::vector<std::unique_ptr<ChannelBase>> channels;  // one per client
   std::string service, method;
   int clients = 0, per_client = 0;
   long long timeout_ms = 0;
@@ -91,20 +100,12 @@ int call_once(Ctx* c, int i, int k, int64_t* t_done, int* code) {
   return same_bytes(resp, expected_of(*c, i, k), c->expected_len) ? 0 : 2;
 }
 
-}  // namespace
-
-extern "C" {
-
-struct lg_ctx;
-
-// `clients` channels to addr, each its own connection (the original's
-// pooled configuration). payloads and expected stay the caller's and must
-// outlive the context. NULL on a channel that does not initialise.
-lg_ctx* lg_new_channel(const char* addr, const char* service,
-                       const char* method, int clients, int per_client,
-                       long long timeout_ms, const char* payloads,
-                       long long payload_len, const char* expected,
-                       long long expected_len) {
+// The context without its channels or requests. payloads and expected
+// stay the caller's and must outlive the context.
+Ctx* new_ctx(const char* service, const char* method, int clients,
+             int per_client, long long timeout_ms, const char* payloads,
+             long long payload_len, const char* expected,
+             long long expected_len) {
   auto* c = new Ctx;
   c->service = service;
   c->method = method;
@@ -115,25 +116,84 @@ lg_ctx* lg_new_channel(const char* addr, const char* service,
   c->payload_len = payload_len;
   c->expected = expected;
   c->expected_len = expected_len;
-  ChannelOptions opts;
-  opts.timeout_ms = timeout_ms;
-  for (int i = 0; i < clients; ++i) {
-    c->channels.push_back(std::make_unique<Channel>());
-    if (c->channels.back()->Init(addr, &opts) != 0) {
-      delete c;
-      return nullptr;
-    }
-  }
-  // As the original: a bulk payload appended whole rides right-sized pool
-  // slot blocks, what a real attachment append produces.
-  c->requests.resize(size_t(clients) * per_client);
-  for (int i = 0; i < clients; ++i) {
-    for (int k = 0; k < per_client; ++k) {
-      c->requests[size_t(i) * per_client + k].append(payload_of(*c, i, k),
-                                                     size_t(payload_len));
+  return c;
+}
+
+// The payloads as IOBufs, once the channels are up. As the original: a
+// bulk payload appended whole rides right-sized pool slot blocks, what a
+// real attachment append produces.
+lg_ctx* with_requests(Ctx* c) {
+  c->requests.resize(size_t(c->clients) * c->per_client);
+  for (int i = 0; i < c->clients; ++i) {
+    for (int k = 0; k < c->per_client; ++k) {
+      c->requests[size_t(i) * c->per_client + k].append(
+          payload_of(*c, i, k), size_t(c->payload_len));
     }
   }
   return reinterpret_cast<lg_ctx*>(c);
+}
+
+std::unique_ptr<Channel> new_sub(const char* addr, long long timeout_ms) {
+  ChannelOptions opts;
+  opts.timeout_ms = timeout_ms;
+  auto ch = std::make_unique<Channel>();
+  if (ch->Init(addr, &opts) != 0) return nullptr;
+  return ch;
+}
+
+}  // namespace
+
+extern "C" {
+
+// `clients` channels to addr, each its own connection (the original's
+// pooled configuration). NULL on a channel that does not initialise.
+lg_ctx* lg_new_channel(const char* addr, const char* service,
+                       const char* method, int clients, int per_client,
+                       long long timeout_ms, const char* payloads,
+                       long long payload_len, const char* expected,
+                       long long expected_len) {
+  Ctx* c = new_ctx(service, method, clients, per_client, timeout_ms,
+                   payloads, payload_len, expected, expected_len);
+  for (int i = 0; i < clients; ++i) {
+    std::unique_ptr<Channel> ch = new_sub(addr, timeout_ms);
+    if (ch == nullptr) {
+      delete c;
+      return nullptr;
+    }
+    c->channels.push_back(std::move(ch));
+  }
+  return with_requests(c);
+}
+
+// `clients` combo channels: each a ParallelChannel (the core's defaults:
+// the call fails only if every sub-call fails; the sub-replies merged in
+// sub-channel order) over channels of its own to addrs[0..n), with the
+// call's deadline as the whole fan-out's. The expected reply is the merged
+// one. NULL on a sub-channel that does not initialise.
+lg_ctx* lg_new_pchan(const char* const* addrs, int n, const char* service,
+                     const char* method, int clients, int per_client,
+                     long long timeout_ms, const char* payloads,
+                     long long payload_len, const char* expected,
+                     long long expected_len) {
+  Ctx* c = new_ctx(service, method, clients, per_client, timeout_ms,
+                   payloads, payload_len, expected, expected_len);
+  ParallelChannelOptions popts;
+  popts.timeout_ms = timeout_ms;
+  for (int i = 0; i < clients; ++i) {
+    auto pchan = std::make_unique<ParallelChannel>();
+    pchan->Init(&popts);
+    for (int j = 0; j < n; ++j) {
+      std::unique_ptr<Channel> ch = new_sub(addrs[j], timeout_ms);
+      if (ch == nullptr ||
+          pchan->AddChannel(ch.get(), tbus::OWNS_CHANNEL) != 0) {
+        delete c;
+        return nullptr;
+      }
+      ch.release();
+    }
+    c->channels.push_back(std::move(pchan));
+  }
+  return with_requests(c);
 }
 
 // Runs the loop: each client makes `calls` calls (calls > 0), or calls

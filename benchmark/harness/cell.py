@@ -1,18 +1,12 @@
-"""One run of one cell: bring the deployment up (this process, which
-holds the card, serves the configuration's device methods over tpu://; a
-client process, harness/client.py, runs the load generator against it),
-warm it, measure the window, read the per-layer metrics, and decide
-`correct`.
+"""One run of one cell: bring the deployment up by the layout its
+configuration names (benchmark/layouts/), warm it, measure the window,
+read the per-layer metrics, and decide `correct`.
 """
 
 from __future__ import annotations
 
-import base64
 import copy
-import json
-import os
 import subprocess
-import sys
 import threading
 import time
 from typing import Callable, Optional
@@ -20,10 +14,8 @@ from typing import Callable, Optional
 import numpy as np
 
 from harness import gen, guard, stats, traffic as traffic_mod
-from harness.spec import BENCH_DIR, ROOT, Cell, reader
+from harness.spec import Cell, reader
 from harness.trace import DeviceTrace, breakdown, busy_s
-
-CLIENT = os.path.join(BENCH_DIR, "harness", "client.py")
 
 
 def merge(base: dict, over: Optional[dict]) -> dict:
@@ -33,65 +25,6 @@ def merge(base: dict, over: Optional[dict]) -> dict:
         out[k] = merge(out[k], v) if isinstance(v, dict) and isinstance(
             out.get(k), dict) else v
     return out
-
-
-class ClientServer:
-    """The configuration's server here, the generator in a client
-    process."""
-
-    def __init__(self, config: dict, mix: dict, seed: int,
-                 seconds: float) -> None:
-        import tbus_torch as tt
-
-        self.server = tt.Server()
-        for method, spec in config["methods"].items():
-            self.server.add_device_method(config["service"], method,
-                                          spec["transform"])
-        port = self.server.start(0)
-        self.proc = subprocess.Popen(
-            [sys.executable, CLIENT], stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, text=True, cwd=ROOT)
-        self._send(json.dumps({
-            "addr": f"tpu://127.0.0.1:{port}", "service": config["service"],
-            "traffic": mix, "seed": seed, "seconds": seconds,
-            "rule": config["guarantee"][mix["method"]]}))
-        self.ready = self._read("ready")["ready"]
-        self.stage_client: dict = {}
-        self.forbidden: list = []
-        self.segments: set = set()
-
-    def _send(self, line: str) -> None:
-        self.proc.stdin.write(line + "\n")
-        self.proc.stdin.flush()
-
-    def _read(self, key: str) -> dict:
-        line = self.proc.stdout.readline()
-        if not line:
-            raise RuntimeError(f"the client process ended before {key!r} "
-                               f"(exit {self.proc.wait()})")
-        return json.loads(line)
-
-    def window(self) -> gen.Result:
-        self._send("go")
-        out = self._read("window")
-        w = out["window"]
-        self.stage_client = out["stage_stats"]
-        self.forbidden = out["forbidden"]
-        self.segments = set(out["segments"]) | guard.own_segments()
-        lat = np.frombuffer(base64.b64decode(out["latencies"]),
-                            dtype=np.int64)
-        return gen.Result(lat, w["failed"], w["wrong"], w["first_error"],
-                          w["t_start_ns"], w["t_end_ns"])
-
-    def close(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.stdin.close()
-            try:
-                self.proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-        self.server.stop()
 
 
 def _counters() -> dict:
@@ -142,27 +75,24 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     """One run of `cell`: its result line as a dict (correct, attempted,
     failed, metrics, device, breakdown with a trace, checks last). t0 is
     the process's start on the monotonic clock; `plant` is put into the
-    configuration's deployment keys (never its guarantee): the faults and
-    the control of benchmark/tests and benchmark/control.py."""
-    import tbus_torch as tt
-
+    configuration's deployment keys (never its guarantee or its layout):
+    the faults and the control of benchmark/tests and
+    benchmark/control.py."""
     config = merge(cell.config, plant)
     config["guarantee"] = cell.config["guarantee"]
+    config["layout"] = cell.config["layout"]
     mix = cell.traffic
     traffic_mod.check(mix)
     if trace and device == "cuda":
         DeviceTrace.prime()
-    if config.get("dma_registration"):
-        tt.device_enable_dma()
-    tt.init(0)
-    tt.device_init(device)
-    deploy = ClientServer(config, mix, seed, seconds)
+    deploy = cell.layout(config, mix, seed, seconds, device)
     try:
         mem = _memory_used(device)
-        before = _counters()
+        own = deploy.counters()
+        before = {**_counters(), **own}
         dev_trace = DeviceTrace() if trace else None
         res = _timed_window(deploy, dev_trace, seconds)
-        after = _counters()
+        after = {**_counters(), **deploy.counters()}
         mem = max(mem, _memory_used(device))
     finally:
         deploy.close()
@@ -183,8 +113,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if trace:
         metrics = _per_layer(cell, readings)
     else:
-        metrics = _end_to_end(cell, res.ok, rtt, mix, window_s,
-                              res.t_start_ns / 1e9 - t0)
+        metrics = _end_to_end(cell, res.ok, rtt, deploy.call_bytes,
+                              window_s, res.t_start_ns / 1e9 - t0)
     # An exact comparison of the window's replies against the answers the
     # reference owes them, so each limit is 0 (PERF.md §2).
     checks = {
@@ -200,14 +130,24 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         line["device"]["busy_s"] = busy_s(dev_trace.ops)
         line["device"]["window_s"] = dev_trace.window_s
         line["breakdown"] = breakdown(dev_trace.ops)
-    line["detail"] = {"ready": deploy.ready, "first_error": res.first_error,
+    line["detail"] = {"layout": config["layout"], "ready": deploy.ready,
+                      "first_error": res.first_error,
                       "leaked": leaked, "forbidden": forbidden,
+                      "counters": _window_counts(before, after, own),
                       "rtt_us": {f"p{q:g}": stats.percentile(rtt, q)
                                  for q in (50, 90, 95, 99, 99.9)}
                       if len(rtt) else {}}
     line["card"] = _card(device)
     line["checks"] = checks
     return line
+
+
+def _window_counts(before: dict, after: dict, blocks: dict) -> dict:
+    """The rise over the window of each whole-number counter of the
+    layout's own blocks."""
+    return {b: {k: after[b][k] - before[b][k] for k, v in after[b].items()
+                if isinstance(v, int) and not isinstance(v, bool)}
+            for b in blocks}
 
 
 def _card(device: str) -> str:
@@ -233,12 +173,12 @@ def _device(device: str, chips: int, mem: int) -> dict:
             "count": chips, "memory_peak_bytes": mem}
 
 
-def _end_to_end(cell: Cell, ok: int, rtt: np.ndarray, mix: dict,
+def _end_to_end(cell: Cell, ok: int, rtt: np.ndarray, call_bytes: int,
                 window_s: float, setup_s: float) -> dict:
     values: dict = {
-        # Request and reply: the reply is the request's size.
-        "goodput_GBps": stats.goodput_gbps(ok, 2 * mix["payload_bytes"],
-                                           window_s),
+        # The request and the reply of each right call, as the layout
+        # counts them.
+        "goodput_GBps": stats.goodput_gbps(ok, call_bytes, window_s),
         "rtt_p50_us": stats.percentile(rtt, 50),
         "setup_s": setup_s,
     }

@@ -14,7 +14,7 @@ import hashlib
 import os
 import subprocess
 import time
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +31,8 @@ _VP, _LL, _I, _D, _CP = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_double, ctypes.c_char_p)
 _SIGNATURES = [
     ("lg_new_channel", [_CP, _CP, _CP, _I, _I, _LL, _VP, _LL, _VP, _LL],
+     _VP),
+    ("lg_new_pchan", [_VP, _I, _CP, _CP, _I, _I, _LL, _VP, _LL, _VP, _LL],
      _VP),
     ("lg_run", [_VP, _LL, _D, _D], _I),
     ("lg_calls", [_VP], _LL),
@@ -124,23 +126,33 @@ class Result:
 
 
 class Loop:
-    """A generator context: the clients' targets, payloads and the answers
-    the reference owes them. `payloads` and `expected` are kept here for
-    as long as the context lives (the C side holds their pointers)."""
+    """A generator context: the clients' channels, payloads and the answers
+    the reference owes them. Each client calls over a channel to `addr`,
+    or, given `subs`, over a combo channel (a ParallelChannel) to those
+    addresses, whose merged reply is what `expected` holds. `payloads` and
+    `expected` are kept here for as long as the context lives (the C side
+    holds their pointers)."""
 
     def __init__(self, payloads: np.ndarray, expected: np.ndarray,
                  service: str, method: str, timeout_ms: int,
-                 addr: str) -> None:
+                 addr: str = "", subs: Sequence[str] = ()) -> None:
+        if bool(addr) == bool(subs):
+            raise ValueError("load generator: give one of addr and subs")
         L = lib()
         self.payloads = np.ascontiguousarray(payloads, dtype=np.uint8)
         self.expected = np.ascontiguousarray(expected, dtype=np.uint8)
         clients, per_client, n = self.payloads.shape
-        self._h = L.lg_new_channel(
-            addr.encode(), service.encode(), method.encode(), clients,
-            per_client, timeout_ms, self.payloads.ctypes.data, n,
-            self.expected.ctypes.data, self.expected.shape[2])
+        tail = (service.encode(), method.encode(), clients, per_client,
+                timeout_ms, self.payloads.ctypes.data, n,
+                self.expected.ctypes.data, self.expected.shape[2])
+        if subs:
+            addrs = (ctypes.c_char_p * len(subs))(*(a.encode() for a in subs))
+            self._h = L.lg_new_pchan(addrs, len(subs), *tail)
+        else:
+            self._h = L.lg_new_channel(addr.encode(), *tail)
         if not self._h:
-            raise RuntimeError(f"load generator: no channel to {addr}")
+            raise RuntimeError(f"load generator: no channel to "
+                               f"{addr or ', '.join(subs)}")
 
     def run(self, calls: int = 0, seconds: float = 0.0,
             rate: float = 0.0) -> Result:

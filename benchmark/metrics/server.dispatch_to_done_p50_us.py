@@ -1,13 +1,12 @@
-"""server.dispatch_to_done_p50_us: the server's handler hop, dispatch to
-done, at its median, from the core's stage clock (stage_stats() of the
-process that serves). Its percentiles cover the recorder's recent samples,
-the window's last calls, not the whole window."""
+"""server.dispatch_to_done_p50_us: the server's device-method hop, from
+the device runtime's EnqueueJob to the job's reply written (the hop `job`
+= replied - enq: queue wait, host prep, the round trip through the card
+and the server's done()), at its median over every job of the window,
+from the device runtime's cumulative hop histograms
+(device_stats()["stages"], after - before)."""
+
+from harness.timeline import hop_percentile_us
 
 
 def read(run):
-    st = run["after"]["stage"].get("tbus_shm_stage_dispatch_to_done")
-    before = run["before"]["stage"].get("tbus_shm_stage_dispatch_to_done",
-                                        {"count": 0})
-    if not st or st["count"] <= before["count"]:
-        return None
-    return st["p50_ns"] / 1e3
+    return hop_percentile_us(run, "job", 50)

@@ -1,11 +1,14 @@
 """The yardstick's arithmetic against hand-worked answers: percentiles and
-goodput with misses, the kernels' byte counts and roofline shares, the
+goodput with misses, goodput from the bytes a layout counts for one right
+call, the kernels' byte counts and roofline shares, every rule of the
 plain reference, and the trace's reduction to busy time and breakdown."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 
-from harness import reference, roofline, stats, trace
+from harness import deploy, reference, roofline, stats, trace
 
 
 def test_misses_count_as_the_deadline():
@@ -41,16 +44,69 @@ def test_kernel_byte_counts():
     assert roofline.roofline_share(2 * mib, 2 * t) == pytest.approx(50.0)
 
 
-def test_reference_against_hand_worked_answers():
-    req = np.array([0, 1, 254, 255], dtype=np.uint8)
-    assert reference.reply("echo", req).tolist() == [0, 1, 254, 255]
-    assert reference.reply("xor255", req).tolist() == [255, 254, 1, 0]
-    with pytest.raises(ValueError):
-        reference.reply("incr", req)
+@pytest.mark.parametrize("rule", reference.known())
+def test_rule_against_its_hand_worked_answers(rule):
+    examples = reference.module(rule).EXAMPLES
+    assert examples
+    for request, owed in examples:
+        req = np.array(request, dtype=np.uint8)
+        got = reference.reply(rule, req)
+        assert got.dtype == np.uint8 and got.tolist() == owed, request
+        assert req.tolist() == request  # the request is left alone
+        assert reference.reply_bytes(rule, len(request)) == len(owed)
+
+
+def test_the_rules_hand_worked_answers():
+    """The three rules' files hold these answers, among others."""
+    req = [0, 1, 254, 255]
+    for rule, owed in (("echo", req), ("xor255", [255, 254, 1, 0]),
+                       ("echo_fanout8", req * 8)):
+        assert (req, owed) in reference.module(rule).EXAMPLES, rule
+
+
+def test_a_reply_longer_than_its_request():
+    block = np.arange(12, dtype=np.uint8).reshape(2, 3, 2)
+    out = reference.replies("echo_fanout8", block)
+    assert out.shape == (2, 3, 16)
+    assert out[1, 2].tolist() == [10, 11] * 8
+    assert reference.reply_bytes("echo_fanout8", 1 << 20) == 8 << 20
+
+
+def test_replies_of_a_block():
     block = np.arange(12, dtype=np.uint8).reshape(2, 3, 2)
     out = reference.replies("xor255", block)
     assert out.shape == (2, 3, 2)
     assert out[1, 2].tolist() == [245, 244]
+
+
+def test_an_unknown_rule_names_the_known_ones():
+    with pytest.raises(ValueError, match="incr") as err:
+        reference.reply("incr", np.zeros(4, dtype=np.uint8))
+    assert ", ".join(reference.known()) in str(err.value)
+
+
+@pytest.mark.parametrize("rule,call_bytes,goodput", [
+    # 1 MiB out, 1 MiB back: 1,000 right calls in 2 s are 1.048576 GB/s.
+    ("xor255", 2 << 20, 1.048576),
+    # 1 MiB out, 8 merged MiB back: 4.718592 GB/s.
+    ("echo_fanout8", 9 << 20, 4.718592),
+])
+def test_goodput_from_the_bytes_a_right_call_carries(rule, call_bytes,
+                                                      goodput):
+    from harness.cell import _end_to_end
+
+    config = {"guarantee": {"M": rule}}
+    mix = {"method": "M", "payload_bytes": 1 << 20}
+    assert deploy.call_bytes(config, mix) == call_bytes
+    cell = SimpleNamespace(end_to_end=[{"name": "goodput_GBps",
+                                        "unit": "GB/s"}])
+    # 1,003 calls in a 2 s window, 3 of them misses.
+    lat = np.array([1000] * 1000 + [-1] * 3, dtype=np.int64)
+    ok = int((lat >= 0).sum())
+    got = _end_to_end(cell, ok, stats.rtt_us(lat, 5000),
+                      deploy.call_bytes(config, mix), 2.0, 1.0)
+    assert got == {"goodput_GBps": {"value": pytest.approx(goodput),
+                                    "unit": "GB/s"}}
 
 
 def test_busy_time_counts_overlaps_once():

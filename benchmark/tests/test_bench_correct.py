@@ -4,11 +4,11 @@ of the device runtime (the harness's look for a card skipped).
 - Each cell of BENCHMARK.json, run by run.py's own entry, comes out
   correct, with its checks last on the result line and on standard error.
 - Every configuration under benchmark/configs/ (those a cell does not use
-  yet too), with each traffic mix that calls one of its methods: a sound
-  run is correct; the control (the configuration's "control": one of its
-  guarantees broken) and every fault the deployment can have (its
-  "faults": a reply returned unchanged, an answer altered where it is
-  produced) are not.
+  yet too), brought up by the layout it names, with the first traffic mix
+  that calls one of its methods: a sound run is correct; the control
+  (the configuration's "control": one of its guarantees broken) and
+  every fault the deployment can have (its "faults": a reply returned
+  unchanged, an answer altered where it is produced) are not.
 On the card, the cuda-marked test runs each cell's command."""
 
 import glob
@@ -32,6 +32,11 @@ def _line(code):
                           text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _layout(config):
+    return spec.load_json(os.path.join(BENCH, "configs",
+                                       f"{config}.json"))["layout"]
 
 
 def _deployments():
@@ -87,6 +92,7 @@ sys.exit(run.main(["--workload", {cell!r}, "--seed", "{SEED}",
 @pytest.mark.parametrize("config,traffic", list(_deployments()))
 def test_a_sound_run_of_each_deployment_is_correct(config, traffic):
     line = _run_deployment(config, traffic)
+    assert line["detail"]["layout"] == _layout(config)
     assert line["correct"], line["checks"]
     assert line["checks"]["wrong_replies"]["value"] == 0
 
@@ -96,6 +102,7 @@ def test_a_sound_run_of_each_deployment_is_correct(config, traffic):
 def test_the_control_and_each_fault_are_not_correct(config, traffic, fault,
                                                     plant):
     line = _run_deployment(config, traffic, plant)
+    assert line["detail"]["layout"] == _layout(config)
     assert not line["correct"], (fault, line["checks"])
     assert line["failed"] > 0
 

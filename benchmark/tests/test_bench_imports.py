@@ -1,6 +1,10 @@
 """Nothing the benchmark runs imports JAX or the JAX package (tbus), by
-top-level module name compared whole: tbus_torch, the port, is not tbus.
-The reference imports nothing of the program at all."""
+top-level module name compared whole: tbus_torch, the port, is not tbus;
+that covers every file of benchmark/, the layouts (benchmark/layouts/) and
+the reference's rules (benchmark/references/) among them. The reference
+and its rules import nothing of the program at all."""
+
+import glob
 
 import ast
 import os
@@ -49,26 +53,43 @@ def test_top_level_names_compare_whole():
     assert _top("jax") in FORBIDDEN
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    allowed = {"__future__", "typing", "numpy"}
-    got = {_top(m) for m in _imports(os.path.join(BENCH, "harness",
-                                                  "reference.py"))}
+REFERENCE = [os.path.join(BENCH, "harness", "reference.py")] + sorted(
+    glob.glob(os.path.join(BENCH, "references", "*.py")))
+
+
+def test_the_scan_covers_the_layouts_and_the_rules():
+    scanned = {os.path.relpath(p, BENCH) for p in _py_files()}
+    for d in ("layouts", "references"):
+        found = {os.path.relpath(p, BENCH)
+                 for p in glob.glob(os.path.join(BENCH, d, "*.py"))}
+        assert found and found <= scanned, d
+
+
+@pytest.mark.parametrize("path", REFERENCE,
+                         ids=lambda p: os.path.relpath(p, BENCH))
+def test_the_reference_imports_nothing_of_the_program(path):
+    allowed = {"__future__", "typing", "numpy", "glob", "importlib", "os"}
+    got = {_top(m) for m in _imports(path)}
     assert got <= allowed, got
 
 
 def test_a_run_loads_neither_once_its_modules_are_in():
-    """Every module of the harness and every metric's reader, imported in
-    a fresh process with the port's RPC layer: no forbidden name lands in
-    sys.modules."""
+    """Every module of the harness, every layout, every rule and every
+    metric's reader, imported in a fresh process with the port's RPC
+    layer: no forbidden name lands in sys.modules."""
     code = f"""
 import glob, os, sys
 sys.path[:0] = [{BENCH!r}, {ROOT!r}]
 import run
-from harness import cell, client, gen, guard, reference, roofline, spec, \\
-    stats, trace, traffic
+from harness import cell, client, deploy, gen, guard, reference, roofline, \\
+    spec, stats, timeline, trace, traffic
 import tbus_torch.rpc
 for path in glob.glob(os.path.join({BENCH!r}, "metrics", "*.py")):
     spec.reader(os.path.basename(path)[:-3])
+for name in spec.layouts():
+    spec.layout(name)
+for name in reference.known():
+    reference.rule(name)
 found = guard.forbidden_modules()
 assert not found, found
 print("CLEAN")

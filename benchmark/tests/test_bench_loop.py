@@ -1,7 +1,9 @@
 """The copied load generator's bookkeeping at a tiny size, on the CPU: the
 calls it counts, the latencies it keeps, a wrong reply and a failed call
-each counted as a miss, and a paced loop's schedule. Each case runs in a
-child process (one core per process)."""
+each counted as a miss, and a paced loop's schedule, on plain channels and
+on combo channels (a ParallelChannel a client, whose merged reply is
+compared whole). Each case runs in a child process (one core per
+process)."""
 
 import os
 import subprocess
@@ -49,6 +51,35 @@ r = failing.run(calls=2)
 assert (r.attempted, r.ok, r.failed) == (4, 0, 4), r.as_dict()
 assert r.first_error != 0 and r.compared == 0
 failing.close()
+
+# Combo channels over 8 echo servers: the merged reply is 8 echoes in
+# sub-channel order; over 4 of them it is short, so every call is wrong.
+fleet = [tt.Server() for _ in range(8)]
+subs = []
+for s in fleet:
+    s.add_echo("LgSvc", "Echo")
+    subs.append(f"127.0.0.1:{s.start(0)}")
+merged = reference.replies("echo_fanout8", payloads)
+assert merged.shape == (2, 3, 8 * 64)
+combo = gen.Loop(payloads, merged, "LgSvc", "Echo", 2000, subs=subs)
+r = combo.run(calls=4)
+assert (r.attempted, r.ok, r.failed, r.wrong) == (8, 8, 0, 0), r.as_dict()
+assert (r.latencies_ns > 0).all() and r.compared == 8
+timed = combo.run(seconds=0.3)
+assert timed.attempted > 0 and timed.ok == timed.attempted
+combo.close()
+short = gen.Loop(payloads, merged, "LgSvc", "Echo", 2000, subs=subs[:4])
+r = short.run(calls=2)
+assert (r.attempted, r.ok, r.wrong, r.failed) == (4, 0, 4, 0), r.as_dict()
+short.close()
+for bad in ({}, {"addr": addr, "subs": subs}):
+    try:
+        gen.Loop(payloads, merged, "LgSvc", "Echo", 2000, **bad)
+        raise AssertionError(bad)
+    except ValueError:
+        pass
+for s in fleet:
+    s.stop()
 server.stop()
 print("LOOP-OK")
 """

@@ -1,7 +1,8 @@
-"""BENCHMARK.json and the files it names: every cell's configuration and
-traffic mix, every per-layer metric's reader, found by name, and the
-contract's limits on names, units and keys."""
+"""BENCHMARK.json and the files it names: every cell's configuration, the
+layout it names and its traffic mix, every per-layer metric's reader,
+found by name, and the contract's limits on names, units and keys."""
 
+import glob
 import json
 import os
 import re
@@ -85,6 +86,43 @@ def test_roofline_names():
     for m in BENCH["per_layer"]:
         if "roofline" in m["name"]:
             assert m["name"].endswith("_roofline") and m["unit"] == "%"
+
+
+@pytest.mark.parametrize("name", spec.layouts())
+def test_a_layout_is_found_by_name(name):
+    layout = spec.layout(name)
+    assert layout.__name__ == "Layout"
+    for method in ("counters", "window", "close"):
+        assert callable(getattr(layout, method)), method
+
+
+def test_the_layouts():
+    assert {"client_server", "fanout_in_process"} <= set(spec.layouts())
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
+    spec.BENCH_DIR, "configs", "*.json"))), ids=os.path.basename)
+def test_every_configuration_names_a_known_layout(path):
+    assert spec.load_json(path)["layout"] in spec.layouts()
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_cell_brings_up_the_layout_its_configuration_names(cell):
+    c = spec.Cell(BENCH, cell)
+    assert c.layout.__module__ == f"bench_layout_{c.config['layout']}"
+
+
+def test_an_unknown_layout_names_the_known_ones(tmp_path):
+    (tmp_path / "benchmark" / "configs").mkdir(parents=True)
+    config = dict(spec.Cell(BENCH, CELLS[0]).config, layout="no_such")
+    (tmp_path / "benchmark" / "configs" / "x.json").write_text(
+        json.dumps(config))
+    bench = dict(BENCH, configs=[{"name": "x",
+                                  "file": "benchmark/configs/x.json"}],
+                 workloads=[dict(BENCH["workloads"][0], config="x")])
+    with pytest.raises(KeyError, match="no_such") as err:
+        spec.Cell(bench, BENCH["workloads"][0]["name"], root=str(tmp_path))
+    assert ", ".join(spec.layouts()) in str(err.value)
 
 
 def test_unknown_cell_names_the_known_ones():

@@ -1,7 +1,7 @@
 """The readers of the device runtime's job timeline (harness/timeline.py
-and the six metrics that read it) against hand-worked answers and a
-synthetic slice, and every reader that was there before them giving the
-same value whether or not the new records are in the readings."""
+and the seven metrics that read it) against hand-worked answers and a
+synthetic slice, and every other reader giving the same value whether or
+not the timeline's records are in the readings."""
 
 import copy
 from types import SimpleNamespace
@@ -11,11 +11,14 @@ import pytest
 
 from harness import spec, timeline
 
-NEW = ["runtime.queue_wait_p50_us", "runtime.host_prep_p50_us",
-       "runtime.device_p50_us", "runtime.reply_p50_us",
-       "runtime.dispatch_busy_share", "device.idle_no_job_share"]
-OLD = [m["name"] for m in spec.benchmark()["per_layer"]
-       if m["name"] not in NEW]
+HISTOGRAM = ["runtime.queue_wait_p50_us", "runtime.host_prep_p50_us",
+             "runtime.device_p50_us", "runtime.reply_p50_us",
+             "runtime.dispatch_busy_share", "server.dispatch_to_done_p50_us"]
+NEW = HISTOGRAM + ["device.idle_no_job_share"]
+# The readers of the trace, the DMA counters and the client's clock, which
+# the fixture below feeds.
+OLD = ["e2e.rtt_p99_us", "dma.staged_bytes_per_call",
+       "u8_transform_roofline", "device.idle_share"]
 JOB_DTYPE = [("seq", "<i8"), ("enq", "<i8"), ("pick", "<i8"),
              ("h2d", "<i8"), ("exec", "<i8"), ("synced", "<i8"),
              ("replied", "<i8"), ("trace_id", "<u8"), ("span_id", "<u8"),
@@ -57,11 +60,6 @@ def _recorded_run():
            ("void (anonymous namespace)::u8_transform_kernel<1>(uint4 "
             "const*)", 242.0, 245.0),
            ("Memcpy DtoH (Device -> Pinned)", 247.0, 290.0)]
-    stage = {"tbus_shm_stage_dispatch_to_done": {"count": 90,
-                                                 "p50_ns": 567000,
-                                                 "p99_ns": 900000},
-             "tbus_shm_stage_ring_to_pickup": {"count": 90, "p50_ns": 1000,
-                                               "p99_ns": 233900}}
     dma = {"h2d_copy_bytes": 10, "d2h_copy_bytes": 20}
     return {
         "traffic": {"payload_bytes": 1 << 20},
@@ -70,11 +68,9 @@ def _recorded_run():
                   "rtt_us": np.arange(1.0, 101.0)},
         "before": {"device": {"executions": 0},
                    "dma": {"h2d_copy_bytes": 0, "d2h_copy_bytes": 0},
-                   "stage": {"tbus_shm_stage_dispatch_to_done":
-                             {"count": 10}}},
-        "after": {"device": {"executions": 100}, "dma": dma, "stage": stage},
-        "stage_client": {"tbus_shm_stage_ring_to_pickup":
-                         {"count": 5, "p99_ns": 120000}},
+                   "stage": {}},
+        "after": {"device": {"executions": 100}, "dma": dma, "stage": {}},
+        "stage_client": {},
         "trace": SimpleNamespace(ops=ops, window_s=0.001, _t0=1000.0),
     }
 
@@ -126,6 +122,8 @@ def test_bucket_percentile_is_the_middle_of_the_bucket_holding_it():
     ("runtime.reply_p50_us", 4.992),
     # 1.2 s busy over a 2 s window.
     ("runtime.dispatch_busy_share", 60.0),
+    # The hop `job`: 4 new jobs, all in [294912, 311296).
+    ("server.dispatch_to_done_p50_us", 303.104),
 ])
 def test_counter_readers_against_hand_worked_answers(name, want):
     assert _read(name, _with_stages(_recorded_run())) == pytest.approx(want)
@@ -141,8 +139,13 @@ def test_new_readers_find_nothing_in_an_older_programs_run(name,
 def test_no_window_jobs_read_as_nothing():
     run = _with_stages(_recorded_run())
     run["after"]["device"]["stages"] = run["before"]["device"]["stages"]
-    for name in NEW[:5]:
+    for name in HISTOGRAM:
         assert _read(name, run) is None, name
+
+
+def test_the_readers_named_here_are_the_benchmarks():
+    have = {m["name"] for m in spec.benchmark()["per_layer"]}
+    assert set(NEW + OLD) <= have
 
 
 @pytest.mark.parametrize("name", OLD)
